@@ -1,0 +1,133 @@
+"""The whole slice: wah_tpu_torch.WahCodec(device="cpu") against
+wah_tpu.WahCodec(kernel="pallas") and wah_tpu.golden, plus the port's
+import guards (no JAX, no wah_tpu, no nvcc or GPU needed to import).
+
+The same numpy inputs (the case matrix of test_pallas.py) go through
+both codecs. Tolerance is zero: streams, their lengths and the decoded
+bitmaps must agree bit for bit.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import wah_tpu
+import wah_tpu_torch
+from test_pallas import CASES
+from wah_tpu import golden
+
+ROOT = Path(__file__).resolve().parents[1]
+IDS = [c[0] for c in CASES]
+
+
+@pytest.fixture(scope="module")
+def codecs():
+    return wah_tpu.WahCodec(kernel="pallas"), wah_tpu_torch.WahCodec(device="cpu")
+
+
+@pytest.mark.parametrize("name,gen", CASES, ids=IDS)
+def test_codec_matches_jax_codec_and_golden(codecs, name, gen):
+    jcodec, tcodec = codecs
+    data = gen()
+    want = golden.encode(data)
+    jstream, _ = jcodec.compress(data)
+    stream, timings = tcodec.compress(data)
+    assert stream.dtype == np.uint32 and len(timings.as_tuple()) == 3
+    np.testing.assert_array_equal(jstream, want)
+    np.testing.assert_array_equal(stream, want)
+
+    jout, _ = jcodec.decompress(want, out_ints=len(data))
+    out, _ = tcodec.decompress(want, out_ints=len(data))
+    np.testing.assert_array_equal(jout, data)
+    np.testing.assert_array_equal(out, data)
+    # untrimmed: ceil(31 * n_chunks / 32) ints, as the reference decoder
+    jfull, _ = jcodec.decompress(want)
+    full, _ = tcodec.decompress(want)
+    np.testing.assert_array_equal(full, jfull)
+    np.testing.assert_array_equal(full, golden.decode(want))
+
+
+def test_module_level_functions_and_empty_input():
+    data = np.array([0x1, 0, 0, 0xFFFFFFFF], dtype=np.uint32)
+    stream, _ = wah_tpu_torch.compress(data, "cpu")
+    np.testing.assert_array_equal(stream, golden.encode(data))
+    out, _ = wah_tpu_torch.decompress(stream, len(data), "cpu")
+    np.testing.assert_array_equal(out, data)
+    empty = np.zeros(0, np.uint32)
+    s, t = wah_tpu_torch.compress(empty, "cpu")
+    o, _ = wah_tpu_torch.decompress(empty, None, "cpu")
+    assert s.size == 0 and o.size == 0 and t.as_tuple() == (0.0, 0.0, 0.0)
+
+
+BAD_STREAMS = {
+    "zero_word": [0x80000001, 0x0],
+    "ones_literal": [0x7FFFFFFF],
+    "zero_length_fill": [0x80000000],
+    "fill_too_long": [0xC0000000 | 1025],
+}
+
+
+@pytest.mark.parametrize("words", BAD_STREAMS.values(), ids=BAD_STREAMS.keys())
+def test_invalid_streams_rejected_like_jax(words):
+    words = np.array(words, dtype=np.uint32)
+    with pytest.raises(ValueError) as jerr:
+        wah_tpu.validate_stream(words)
+    with pytest.raises(ValueError) as terr:
+        wah_tpu_torch.WahCodec("cpu").decompress(words)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_size_cap_matches_jax():
+    from wah_tpu import api as japi
+    from wah_tpu_torch import api as tapi
+
+    assert tapi.MAX_INTS_PER_BITMAP == japi.MAX_INTS_PER_BITMAP
+    tapi._check_size(tapi.MAX_INTS_PER_BITMAP)
+    with pytest.raises(ValueError, match="int32 position limit"):
+        tapi._check_size(tapi.MAX_INTS_PER_BITMAP + 1)
+
+
+def _run(code: str, **env) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, **env}, timeout=120,
+    )
+
+
+def test_import_leaves_jax_out():
+    res = _run("import sys, wah_tpu_torch; assert 'jax' not in sys.modules")
+    assert res.returncode == 0, res.stderr
+
+
+def test_kernel_wrappers_import_without_nvcc_or_gpu(tmp_path):
+    """Importing every kernel wrapper builds and loads nothing: no nvcc on
+    PATH, no CUDA_HOME, no visible GPU."""
+    code = (
+        "import sys\n"
+        "from wah_tpu_torch.ops.cuda import _build, decode_kernel, encode_kernel, stitch2\n"
+        "assert _build.load.cache_info().currsize == 0\n"
+        "assert 'jax' not in sys.modules and 'wah_tpu.api' not in sys.modules\n"
+    )
+    res = _run(code, PATH=str(tmp_path), CUDA_HOME=str(tmp_path), CUDA_VISIBLE_DEVICES="")
+    assert res.returncode == 0, res.stderr
+
+
+def test_port_never_imports_jax_or_wah_tpu():
+    """No module of the port, nor chip_smoke.py, imports jax or wah_tpu."""
+    files = sorted((ROOT / "wah_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "wah_tpu"), f"{path}: imports {name}"

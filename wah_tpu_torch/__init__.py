@@ -1,0 +1,28 @@
+"""wah_tpu_torch — the WAH codec of wah_tpu, ported to PyTorch and
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+Imports torch and numpy, never JAX or wah_tpu; wah_tpu stays the
+reference it is tested against.
+
+Public API:
+  compress(bitmap, device)             -> (stream, timings)
+  decompress(stream, out_ints, device) -> (bitmap, timings)
+  WahCodec(device)                     the codec on one torch device
+  ops.bits / ops.encode / ops.decode   plain torch ports of wah_tpu.ops
+  ops.cuda.*                           kernels K1-K4 with their plain versions
+  golden                               NumPy oracle (copy of wah_tpu.golden)
+"""
+from . import constants, golden
+from .api import WahCodec, compress, decompress, validate_stream
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "constants",
+    "golden",
+    "WahCodec",
+    "compress",
+    "decompress",
+    "validate_stream",
+    "__version__",
+]

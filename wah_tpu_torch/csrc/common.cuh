@@ -1,0 +1,52 @@
+// Shared definitions of the WAH kernels: format constants (copied from
+// wah_tpu_torch/constants.py) and warp / block scans.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace wah {
+
+constexpr uint32_t kOnes31 = 0x7FFFFFFFu;   // one-fill chunk payload
+constexpr uint32_t kBit31 = 0x80000000u;    // fill-word flag
+constexpr uint32_t kBit30 = 0x40000000u;    // one-fill flag
+constexpr uint32_t kBit3130 = 0xC0000000u;  // one-fill word prefix
+constexpr uint32_t kLenMask = 0x3FFFFFFFu;  // 30-bit run length
+constexpr int kBlockChunks = 1024;          // chunks per coalescing block
+constexpr int kBlockInts = 992;             // input ints per block
+constexpr int kGranule = 128;               // words per granule (decode tables)
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// Inclusive prefix sum across the 32 lanes of a warp.
+__device__ __forceinline__ int warp_inclusive_scan(int x) {
+  const int lane = lane_id();
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// Exclusive prefix sum over a block of exactly 1024 threads (32 warps).
+// `buf` is 33 ints of shared memory, free for this call; *total gets the
+// block's sum. Contains two __syncthreads(): every thread must call it.
+__device__ __forceinline__ int block_exclusive_scan_1024(int x, int* buf, int* total) {
+  const int lane = lane_id(), warp = threadIdx.x >> 5;
+  const int incl = warp_inclusive_scan(x);
+  if (lane == 31) buf[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int s = buf[lane];
+    const int si = warp_inclusive_scan(s);
+    buf[lane] = si - s;
+    if (lane == 31) buf[32] = si;
+  }
+  __syncthreads();
+  *total = buf[32];
+  return buf[warp] + incl - x;
+}
+
+}  // namespace wah

@@ -1,0 +1,176 @@
+"""K3 and K4: decode — counterpart of wah_tpu/ops/pallas/decode_kernel.py.
+
+`prescan_words` (K3) masks the stream words to the valid count and sums
+each 128-word granule's expanded size; `decode_blocks` (K4, the
+counterpart of `_run_decode`) expands and merges each 1024-chunk output
+block. Both run their CUDA kernel (wah_tpu_torch/csrc/decode.cu) for a
+CUDA tensor and their plain version for a CPU tensor. `decode` is the
+decode pipeline, K3 -> exclusive scan of the granule sums (torch.cumsum,
+outside the kernels as in wah_tpu) -> K4; `decode_plain` runs the same
+pipeline through the plain versions.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...constants import BLOCK_CHUNKS, BLOCK_INTS
+from ...convert import to_i32
+from .. import bits
+from ..decode import expand_at, word_counts
+from ._args import check, on_cpu
+
+__all__ = [
+    "prescan_words",
+    "prescan_words_plain",
+    "decode_blocks",
+    "decode_blocks_plain",
+    "decode",
+    "decode_plain",
+]
+
+GRANULE = 128  # words per granule of the offset tables
+_I64 = torch.int64
+
+
+def _check_prescan(words, vc, out_rows):
+    check(words, "words", (None,))
+    check(vc, "vc", (out_rows,))
+    if words.shape[0] % BLOCK_CHUNKS:
+        raise ValueError(f"words: length must be a multiple of 1024, got {words.shape[0]}")
+    if out_rows < words.shape[0] // GRANULE:
+        raise ValueError(f"out_rows {out_rows} < {words.shape[0] // GRANULE} input rows")
+
+
+def prescan_words_plain(
+    words: torch.Tensor, vc: torch.Tensor, out_rows: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of prescan_words."""
+    rows_in = words.shape[0] // GRANULE
+    w = torch.zeros((out_rows, GRANULE), dtype=torch.int32, device=words.device)
+    w[:rows_in] = words.view(rows_in, GRANULE)
+    lane = torch.arange(GRANULE, device=words.device)
+    keep = lane < vc[:, None]
+    w = torch.where(keep, w, 0)
+    cnt = word_counts(w.reshape(-1), w.numel()).view(out_rows, GRANULE).to(_I64)
+    return w, to_i32(torch.where(keep, cnt, 0).sum(dim=1))
+
+
+def prescan_words(
+    words: torch.Tensor, vc: torch.Tensor, out_rows: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(M,) int32 words, M % 1024 == 0, + (out_rows,) int32 per-granule
+    valid counts -> (words_t (out_rows, 128) int32, g_sums (out_rows,) int32).
+
+    Lane k of granule row r is kept iff k < vc[r] and zeroed otherwise;
+    rows past the input are zero. g_sums[r] is the expanded size of row
+    r's kept words (fill -> run length, literal -> 1). For one stream of m
+    words, vc[r] = clip(m - 128 r, 0, 128).
+    """
+    _check_prescan(words, vc, out_rows)
+    if on_cpu(words, vc):
+        return prescan_words_plain(words, vc, out_rows)
+    if words.data_ptr() % 16:
+        raise ValueError("words: the kernel loads 16 B vectors; pass a 16 B-aligned tensor")
+    words_t = torch.empty((out_rows, GRANULE), dtype=torch.int32, device=words.device)
+    g_sums = torch.empty(out_rows, dtype=torch.int32, device=words.device)
+    if out_rows:
+        from ._build import launch
+
+        launch(
+            "wah_prescan_words", words.device, words.data_ptr(), vc.data_ptr(),
+            words_t.data_ptr(), g_sums.data_ptr(), words.shape[0] // GRANULE, out_rows,
+        )
+        prescan_words.launches += 1
+    return words_t, g_sums
+
+
+prescan_words.launches = 0
+
+
+def decode_blocks_plain(
+    words_t: torch.Tensor, g_base: torch.Tensor, meta: torch.Tensor, nbo: int
+) -> torch.Tensor:
+    """Plain torch version of decode_blocks."""
+    n_chunks, m, chunk_base, pos_mask = meta.tolist()
+    words = words_t.reshape(-1)
+    cnt = word_counts(words, m).view(-1, GRANULE).to(_I64)
+    offsets = (g_base.to(_I64)[:, None] + torch.cumsum(cnt, dim=1) - cnt).reshape(-1)
+    pos = chunk_base + torch.arange(nbo * BLOCK_CHUNKS, dtype=_I64, device=words.device)
+    chunks = torch.where((pos & pos_mask) < n_chunks, expand_at(words, offsets, pos), 0)
+    return bits.merge_chunks(chunks.view(nbo, BLOCK_CHUNKS))
+
+
+def decode_blocks(
+    words_t: torch.Tensor, g_base: torch.Tensor, meta: torch.Tensor, nbo: int
+) -> torch.Tensor:
+    """Expand and merge nbo output blocks -> (nbo, 992) int32.
+
+    words_t (rows, 128) int32: prescanned words (zero past the stream);
+    g_base (rows,) int32: each granule's first chunk position, the
+    exclusive scan of prescan_words' g_sums; meta (4,) int32:
+    [n_chunks, m, chunk_base, pos_mask]. Output block bo holds chunks
+    [chunk_base + 1024 bo, + 1024) merged to 32-bit ints; chunks whose
+    (position & pos_mask) >= n_chunks are zero.
+    """
+    rows = words_t.shape[0]
+    check(words_t, "words_t", (None, GRANULE))
+    check(g_base, "g_base", (rows,))
+    check(meta, "meta", (4,))
+    if rows == 0:
+        raise ValueError("words_t: need at least one granule row")
+    if on_cpu(words_t, g_base, meta):
+        return decode_blocks_plain(words_t, g_base, meta, nbo)
+    out = torch.empty((nbo, BLOCK_INTS), dtype=torch.int32, device=words_t.device)
+    if nbo:
+        from ._build import launch
+
+        launch(
+            "wah_decode_blocks", words_t.device, words_t.data_ptr(), g_base.data_ptr(),
+            meta.data_ptr(), out.data_ptr(), rows, nbo,
+        )
+        decode_blocks.launches += 1
+    return out
+
+
+decode_blocks.launches = 0
+
+
+def _decode(words, m: int, chunk_capacity: int, chunk_base: int, prescan, blocks):
+    if chunk_capacity % BLOCK_CHUNKS:
+        raise ValueError(f"chunk_capacity must be a multiple of 1024, got {chunk_capacity}")
+    M = words.shape[0]
+    Mr = -(-M // BLOCK_CHUNKS) * BLOCK_CHUNKS
+    if Mr != M:
+        words = torch.cat([words, words.new_zeros(Mr - M)])
+    rows = Mr // GRANULE
+    dev = words.device
+    vc = (m - GRANULE * torch.arange(rows, dtype=_I64, device=dev)).clamp(0, GRANULE)
+    words_t, g_sums = prescan(words, vc.to(torch.int32), rows)
+    g_incl = torch.cumsum(g_sums, dim=0, dtype=torch.int32)
+    n_chunks = g_incl[-1:]
+    meta = torch.cat(
+        [n_chunks, torch.tensor([m, chunk_base, 0x7FFFFFFF], dtype=torch.int32, device=dev)]
+    )
+    ints = blocks(words_t, g_incl - g_sums, meta, chunk_capacity // BLOCK_CHUNKS)
+    n_chunks = n_chunks[0]
+    return ints.reshape(-1), n_chunks - n_chunks // 32
+
+
+def decode(
+    words: torch.Tensor, m: int, chunk_capacity: int, chunk_base: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decompress words[:m] -> (ints (chunk_capacity//1024*992,) int32,
+    n_ints int32 0-dim). chunk_capacity must be a multiple of 1024;
+    chunk_base (block-aligned) decodes the span [chunk_base, chunk_base +
+    chunk_capacity) instead. n_ints = ceil(31 n_chunks / 32) of the whole
+    stream, computed as n - n//32 so that it cannot wrap int32."""
+    return _decode(words, m, chunk_capacity, chunk_base, prescan_words, decode_blocks)
+
+
+def decode_plain(
+    words: torch.Tensor, m: int, chunk_capacity: int, chunk_base: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """decode through the plain versions, on any device."""
+    return _decode(
+        words, m, chunk_capacity, chunk_base, prescan_words_plain, decode_blocks_plain
+    )
