@@ -5,17 +5,33 @@ device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and no network, and
 imports nothing of JAX or wah_tpu. Phases, one or more lines each:
 
   1. device   the card's name and power limit, as nvidia-smi reports them
-  2. build    nvcc builds kernels K1-K4 from wah_tpu_torch/csrc/
+  2. build    nvcc builds kernels K1-K4 and K6 from wah_tpu_torch/csrc/
   3. kernels  each kernel against its plain torch version on the card, at
-              the main path's shapes (32,768 blocks, the 130 MB protocol):
-              bit-exact, tolerance 0 (an integer codec)
+              the main path's shapes (32,768 blocks, the 130 MB protocol),
+              and K6 also on the all-zero 130 MB bitmap's staging and on
+              offset edge cases: bit-exact, tolerance 0 (an integer codec)
+  3b. batch   the batched encode (K1 with a per-column position mask, K2
+              with per-row counts) and decode (K3 with per-column valid
+              counts, K4 with the mask) against their plain twins at the
+              query benchmark's shape: 16 columns x 8,192 blocks, 2^-8
   4. codec    WahCodec("cuda").compress / .decompress: the bench protocol
               (stream == golden, in full), clustered, all-zero, all-one,
               odd sizes, tiny, empty, and the 992 MB sweep size (stream ==
               the plain torch encode on the card); every case round-trips
-  5. counts   every kernel launched during phase 4
-  6. times    CUDA-event milliseconds of each kernel and each pipeline
-              against the plain versions, at the 130 MB protocol
+  4b. queries the index queries at the query shape: k = 4 and 16 OR and
+              AND folds, a pairwise AND (~2^-16, so the "auto" stitch must
+              take K6), NOT; each == the plain pipeline on the card and ==
+              golden.encode of the numpy result
+  4c. index   BitmapIndex over TPC-H SF10 lineitem.l_quantity (59,986,052
+              rows, 50 values): TPC-H Q6's and Q19's quantity ranges, a
+              membership, a NOT and a disjoint AND (K6); every stream ==
+              golden, every count == numpy, rows == numpy
+  5. counts   every kernel of each main path (phases 4, 4b, 4c) launched
+              in that path's own run
+  6. times    CUDA-event milliseconds of each kernel and pipeline against
+              the plain versions: the 130 MB protocol, K6 against K2 on
+              two stagings, the query folds; host-clock seconds of the
+              index build and of Q6 through the API
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed. The second-to-last line is {"kernels": [...]}, the last
@@ -32,6 +48,10 @@ import numpy as np
 PROTOCOL_BLOCKS = 32768  # 130 MB bitmap: the bench protocol (bench.py)
 SWEEP_MAX_BLOCKS = 262144  # 992 MB: the reference sweep's largest size (s = 256)
 SEED = 1337
+# the query benchmark's shape (benchmarks/query_bench.py:37-40): 32.5 MB columns, 2^-8
+QUERY_COLUMNS, QUERY_BLOCKS, QUERY_ANDS = 16, 8192, 8
+# TPC-H SF10 lineitem: 59,986,052 rows, l_quantity uniform in 1..50 (spec clause 4.2.3)
+LINEITEM_ROWS, QUANTITIES = 59_986_052, 50
 
 # (name, source, TPU kernel replaced)
 KERNELS = [
@@ -39,6 +59,7 @@ KERNELS = [
     ("stitch_tiles_v2", "wah_tpu_torch/csrc/stitch.cu", "wah_tpu/ops/pallas/stitch2.py:250"),
     ("prescan_words", "wah_tpu_torch/csrc/decode.cu", "wah_tpu/ops/pallas/decode_kernel.py:686"),
     ("decode_blocks", "wah_tpu_torch/csrc/decode.cu", "wah_tpu/ops/pallas/decode_kernel.py:470"),
+    ("stitch_tiles", "wah_tpu_torch/csrc/stitch_gather.cu", "wah_tpu/ops/pallas/encode_kernel.py:504"),
 ]
 
 
@@ -49,14 +70,21 @@ def bench_bitmap(n_ints: int, seed: int = SEED) -> np.ndarray:
     return np.packbits(bits, axis=1, bitorder="little").view(np.uint32).reshape(-1)
 
 
-def sparse_bitmap(n_ints: int, seed: int = SEED) -> np.ndarray:
-    """P(bit) = 2^-4 as the AND of four uniform words: the protocol's
-    distribution without its 32x byte-per-bit intermediate."""
+def sparse_bitmap(n_ints: int, seed: int = SEED, ands: int = 4) -> np.ndarray:
+    """P(bit) = 2^-ands as the AND of `ands` uniform words (4: the
+    protocol's distribution without its 32x byte-per-bit intermediate)."""
     rng = np.random.default_rng(seed)
     out = rng.integers(0, 1 << 32, size=n_ints, dtype=np.uint32)
-    for _ in range(3):
+    for _ in range(ands - 1):
         out &= rng.integers(0, 1 << 32, size=n_ints, dtype=np.uint32)
     return out
+
+
+def mask_bitmap(mask: np.ndarray) -> np.ndarray:
+    """Row mask -> uint32 bitmap (bit r = row r), zero-padded to whole ints."""
+    padded = np.zeros(-(-mask.shape[0] // 32) * 32, np.uint8)
+    padded[: mask.shape[0]] = mask
+    return np.packbits(padded, bitorder="little").view(np.uint32)
 
 
 def clustered_bitmap(n_ints: int, seed: int, a: float) -> np.ndarray:
@@ -91,6 +119,41 @@ def exact(name: str, got, want) -> int:
     return err
 
 
+def same_stream(name: str, got: np.ndarray, want: np.ndarray) -> None:
+    if got.shape != want.shape or not np.array_equal(got, want):
+        diff = np.flatnonzero(got[: len(want)] != want[: len(got)])
+        first = int(diff[0]) if diff.size else min(len(got), len(want))
+        raise AssertionError(f"{name}: {len(got)} words vs {len(want)}, first differing word {first}")
+
+
+def stitch_case(counts, seed: int, cuda):
+    """Staging rows of random nonzero words with the given per-row counts,
+    and their exclusive offsets (nb+1,), on the card."""
+    import torch
+
+    counts = np.asarray(counts, np.int64)
+    rng = np.random.default_rng(seed)
+    staging = rng.integers(1, 2**31 - 1, size=(len(counts), 1024)).astype(np.int32)
+    staging[np.arange(1024)[None, :] >= counts[:, None]] = 0
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return torch.from_numpy(staging).to(cuda), torch.from_numpy(offsets).to(cuda)
+
+
+def check_k6(name: str, staging, offsets_ext) -> int:
+    """K6 against its plain version: bit-exact up to the total, and zero from
+    there to the end of the last tile that holds words."""
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+    from wah_tpu_torch.ops.cuda import stitch2
+
+    total = int(offsets_ext[-1])
+    end = -(-total // 1024) * 1024
+    got = ek.stitch_tiles(staging, offsets_ext)
+    want = stitch2.stitch_tiles_plain(staging, offsets_ext)
+    if want[total:end].any():
+        raise AssertionError(f"K6 {name}: plain version not zero past the total")
+    return exact(f"K6 {name} (total {total})", got[:end], want[:end])
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean CUDA-event milliseconds of fn() over `iters` runs after one warm-up."""
     import torch
@@ -114,18 +177,35 @@ def main() -> None:
     run(torch.device("cuda"))
 
 
+class Phase:
+    """Prints a phase's wall time when it ends (after a device sync)."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if exc[0] is None:
+            torch.cuda.synchronize()
+            print(f"[{self.name}] wall {time.perf_counter() - self.t0:.2f} s", flush=True)
+
+
 def run(cuda) -> None:
     """All phases on the CUDA device `cuda`."""
     import torch
 
-    from wah_tpu_torch import WahCodec, golden
-    from wah_tpu_torch.convert import tensor_to_words, words_to_tensor
     from wah_tpu_torch.ops.cuda import _build
     from wah_tpu_torch.ops.cuda import decode_kernel as dk
     from wah_tpu_torch.ops.cuda import encode_kernel as ek
     from wah_tpu_torch.ops.cuda import stitch2
 
-    wrappers = [ek.encode_tiles, stitch2.stitch_tiles_v2, dk.prescan_words, dk.decode_blocks]
+    wrappers = {w.__name__: w for w in (ek.encode_tiles, stitch2.stitch_tiles_v2,
+                                        dk.prescan_words, dk.decode_blocks, ek.stitch_tiles)}
 
     # 1. device
     card = device_line()
@@ -141,7 +221,64 @@ def run(cuda) -> None:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"    {line.strip()}")
 
-    # 3. kernels against their plain versions at the protocol's shapes
+    counts = {}  # main path -> {kernel: launches in that path's own run}
+
+    def main_path(name, expected, fn):
+        """Drive one main path with every count set to 0 just before it;
+        read the counts just after, and fail if a kernel of it never ran."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = {k: w.launches for k, w in wrappers.items()}
+        missing = [k for k in expected if counts[name][k] == 0]
+        print(f"[5 counts] {name}: {counts[name]}", flush=True)
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched on the main path: {missing}")
+        return out
+
+    with Phase("3 kernels"):
+        errs, proto = phase_kernels(cuda)
+    with Phase("3b batch"):
+        query = phase_batch(cuda, errs)
+    with Phase("4 codec"):
+        ratio = main_path("codec", list(wrappers)[:4], lambda: phase_codec(cuda, proto["data"]))
+    with Phase("4b queries"):
+        phase_queries(cuda, query, main_path)
+    with Phase("4c index"):
+        index_times = phase_index(cuda, main_path)
+
+    # 5. launch counts of the main paths
+    launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
+    print(f"[5 counts] all main paths: {launches}")
+
+    with Phase("6 times"):
+        ms = phase_times(cuda, card, proto, query, index_times)
+    print(f"[6 times] compression ratio (words / ints): {ratio}")
+
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": ms[name][0], "plain_ms": ms[name][1]}
+        for name, src, rep in KERNELS
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def phase_kernels(cuda):
+    """3. Each kernel against its plain version at the protocol's shapes;
+    K6 also on the all-zero bitmap's staging and on offset edge cases."""
+    import torch
+
+    from wah_tpu_torch import golden
+    from wah_tpu_torch.convert import words_to_tensor
+    from wah_tpu_torch.ops.cuda import decode_kernel as dk
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+    from wah_tpu_torch.ops.cuda import stitch2
+
     n = PROTOCOL_BLOCKS * 992
     data = bench_bitmap(n)
     ints = words_to_tensor(data, cuda)
@@ -179,12 +316,39 @@ def run(cuda) -> None:
     nbo = -(-n_chunks // 1024)
     out = dk.decode_blocks(words_t, g_base, meta, nbo)
     errs["decode_blocks"] = exact("K4 ints", out, dk.decode_blocks_plain(words_t, g_base, meta, nbo))
-    torch.cuda.synchronize()
-    print(f"[3 kernels] {PROTOCOL_BLOCKS} blocks, stream {m} words: all bit-exact {errs}")
 
-    # 4. the main path through the public API
-    for w in wrappers:
-        w.launches = 0
+    # K6: the protocol's staging, the all-zero bitmap's (one word a row), edges
+    zeros = torch.zeros_like(ints2d)
+    staging_z, counts_z = ek.encode_tiles(zeros, nv)
+    offsets_z = torch.cat([counts_z.new_zeros(1), torch.cumsum(counts_z[:, 0], 0, dtype=torch.int32)])
+    k6 = [check_k6("protocol", staging, offsets_ext), check_k6("all-zero", staging_z, offsets_z)]
+    edges = {
+        "ties in the middle and at the end": [0] * 5 + [3, 0, 0, 700] + [1024] * 3 + [0] * 20,
+        "total a multiple of 1024": [512, 512, 0, 1024, 0, 1000, 24],
+        "every row full": [1024] * 64,
+        "a total of one word": [1] + [0] * 63,
+        "no words": [0] * 16,
+    }
+    for i, (name, c) in enumerate(edges.items()):
+        k6.append(check_k6(name, *stitch_case(c, i, cuda)))
+    errs["stitch_tiles"] = max(k6)
+    torch.cuda.synchronize()
+    print(f"[3 kernels] {PROTOCOL_BLOCKS} blocks, stream {m} words: all bit-exact {errs}; "
+          f"K6 also on the all-zero staging ({int(offsets_z[-1])} words) and {len(edges)} edge cases")
+    proto = dict(data=data, ints=ints, ints2d=ints2d, nv=nv, staging=staging,
+                 offsets_ext=offsets_ext, staging_z=staging_z, offsets_z=offsets_z,
+                 stream=stream, m=m, vc=vc, rows=rows, words_t=words_t, g_base=g_base,
+                 meta=meta, nbo=nbo)
+    return errs, proto
+
+
+def phase_codec(cuda, data):
+    """4. The codec's main path through the public API."""
+    from wah_tpu_torch import WahCodec, golden
+    from wah_tpu_torch.convert import tensor_to_words, words_to_tensor
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+
+    n = PROTOCOL_BLOCKS * 992
     codec = WahCodec(cuda)
     ratio = {}
 
@@ -228,52 +392,248 @@ def run(cuda) -> None:
         parts.append(tensor_to_words(w_p[: int(tot_p)]))
     del big_dev
     roundtrip("sweep_992MB_p2^-4", big, want=np.concatenate(parts))
-    del big, parts
+    return ratio
 
-    # 5. launch counts of the main path
-    launches = {w.__name__: w.launches for w in wrappers}
-    print(f"[5 counts] {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
 
-    # 6. times at the 130 MB protocol: kernel vs plain, each kernel and pipeline
+def phase_batch(cuda, errs):
+    """3b. The batched kernels against their plain twins at the query
+    benchmark's shape, on the card."""
+    import torch
+
+    from wah_tpu_torch import golden
+    from wah_tpu_torch.convert import words_to_tensor
+    from wah_tpu_torch.ops.cuda import decode_kernel as dk
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+
+    C, nb = QUERY_COLUMNS, QUERY_BLOCKS
+    n = nb * 992
+    cols = sparse_bitmap(C * n, seed=SEED, ands=QUERY_ANDS).reshape(C, n)
+    nv = golden.chunk_count(n)
+    rows = words_to_tensor(cols.reshape(-1), cuda).view(C * nb, 992)
+    words, totals = ek.encode_rows_batch(rows, C, nv)
+    words_p, totals_p = ek.encode_rows_batch_plain(rows, C, nv)
+    err = exact("batch totals", totals, totals_p)
+    cap = nb * 1024
+    for c in range(C):
+        t = int(totals[c])
+        err = max(err, exact(f"batch encode column {c}", words[c * cap : c * cap + t],
+                             words_p[c * cap : c * cap + t]))
+    del words_p
+    # decode the flat output as it stands: words past each total are K2's
+    # unspecified tails, which K3 must mask
+    ints = dk.decode_rows_batch(words, C, totals, cap)
+    ints_p = dk.decode_rows_batch_plain(words, C, totals, cap)
+    err = max(err, exact("batch decode", ints, ints_p))
+    if not torch.equal(ints, rows.reshape(-1)):
+        raise AssertionError("batch decode: the columns do not round-trip")
+    del ints, ints_p
+    for k in ("encode_tiles", "stitch_tiles_v2", "prescan_words", "decode_blocks"):
+        errs[k] = max(errs[k], err)
+    mb = cols.nbytes / 1e6
+    print(f"[3b batch] {C} columns x {nb} blocks ({mb:.1f} MB), P(bit) = 2^-{QUERY_ANDS}: "
+          f"encode_rows_batch and decode_rows_batch == plain, round trip ok; "
+          f"stream words per column {totals.tolist()}", flush=True)
+    return dict(cols=cols, n=n, cap=cap, words=words, totals=totals)
+
+
+def phase_queries(cuda, query, main_path):
+    """4b. The index queries at the query benchmark's shape: the kernel
+    pipeline (counted), then each result against the same pipeline through
+    the plain versions on the card and against golden."""
+    from wah_tpu_torch import golden
+    from wah_tpu_torch.convert import tensor_to_words
+    from wah_tpu_torch.ops import logical
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+
+    cols, n, cap, words, totals = (query[k] for k in ("cols", "n", "cap", "words", "totals"))
+    folds = [(k, op) for k in (4, 16) for op in ("or", "and")]
+
+    def queries(plain):
+        out = {}
+        for k, op in folds:
+            w, t = logical.logical_reduce_flat(words[: k * cap], k, totals[:k], op, n, plain)
+            out[f"k{k}_{op}"] = tensor_to_words(w[: int(t)])
+        m_a, m_b = int(totals[0]), int(totals[1])
+        before = ek.stitch_tiles.launches
+        w, t = logical.logical_op(words[:cap], m_a, words[cap : 2 * cap], m_b, "and", n, plain)
+        out["pair_and"] = tensor_to_words(w[: int(t)])
+        if not plain and ek.stitch_tiles.launches != before + 1:
+            raise AssertionError("pairwise AND: the auto stitch did not take K6")
+        out["not"] = tensor_to_words(logical.complement_stream(words[:cap], m_a)[:m_a])
+        return out
+
+    got = main_path("queries", ["encode_tiles", "stitch_tiles_v2", "prescan_words",
+                                "decode_blocks", "stitch_tiles"], lambda: queries(False))
+    plain = queries(True)
+    want = {f"k{k}_{op}": golden.encode({"or": np.bitwise_or, "and": np.bitwise_and}[op]
+                                        .reduce(cols[:k])) for k, op in folds}
+    want["pair_and"] = golden.encode(cols[0] & cols[1])
+    want["not"] = golden.encode(~cols[0])
+    for name in got:
+        same_stream(f"query {name} (kernels vs plain)", got[name], plain[name])
+        same_stream(f"query {name} (vs golden)", got[name], want[name])
+    print(f"[4b queries] == plain pipeline and golden: "
+          f"{ {name: len(s) for name, s in got.items()} } words", flush=True)
+
+
+def phase_index(cuda, main_path):
+    """4c. BitmapIndex over TPC-H SF10 lineitem.l_quantity, through the API."""
+    from wah_tpu_torch import BitmapIndex, WahCodec, golden
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+
+    quantity = np.random.default_rng(SEED).integers(1, QUANTITIES + 1, size=LINEITEM_ROWS)
+    values = quantity - 1  # indexed as l_quantity - 1: columns 0..49
+    codec = WahCodec(cuda)
+    queries = {  # name -> (query on the index, numpy mask of the rows)
+        "q6_quantity_lt_24": (lambda i: i.query_range(0, 22), lambda: quantity < 24),
+        "q19_1_to_11": (lambda i: i.query_range(0, 10), lambda: quantity <= 11),
+        "q19_10_to_20": (lambda i: i.query_range(9, 19), lambda: (quantity >= 10) & (quantity <= 20)),
+        "q19_20_to_30": (lambda i: i.query_range(19, 29), lambda: (quantity >= 20) & (quantity <= 30)),
+        "in_1_or_50": (lambda i: i.query_in([0, 49]), lambda: np.isin(quantity, [1, 50])),
+        "not_24": (lambda i: i.query_not(23), lambda: quantity != 24),
+        "and_1_2_disjoint": (lambda i: i.codec.logical(i.column(0), i.column(1), "and", i.n_ints),
+                             lambda: np.zeros(LINEITEM_ROWS, bool)),
+    }
+    times = {}
+
+    def drive():
+        t0 = time.perf_counter()
+        idx = BitmapIndex.build(values, QUANTITIES, codec=codec)
+        times["build_s"] = time.perf_counter() - t0
+        out = {}
+        for name, (q, _) in queries.items():
+            k6 = ek.stitch_tiles.launches
+            t0 = time.perf_counter()
+            out[name] = q(idx)
+            times[name] = time.perf_counter() - t0
+            if name == "and_1_2_disjoint" and ek.stitch_tiles.launches != k6 + 1:
+                raise AssertionError("disjoint AND: the auto stitch did not take K6")
+        rows = idx.rows(out["q19_1_to_11"])
+        return idx, out, rows
+
+    idx, got, rows = main_path("index", ["encode_tiles", "stitch_tiles_v2", "prescan_words",
+                                         "decode_blocks", "stitch_tiles"], drive)
+    for v in (0, 23, 49):
+        same_stream(f"index column {v}", idx.column(v), golden.encode(mask_bitmap(values == v)))
+    for name, (_, mask_fn) in queries.items():
+        mask = mask_fn()
+        same_stream(f"index {name}", got[name], golden.encode(mask_bitmap(mask)))
+        if idx.count(got[name]) != int(mask.sum()):
+            raise AssertionError(f"index {name}: count {idx.count(got[name])} != {int(mask.sum())}")
+    if not np.array_equal(rows, np.flatnonzero(quantity <= 11)):
+        raise AssertionError("index rows(q19_1_to_11) differ from numpy")
+    print(f"[4c index] {LINEITEM_ROWS} rows x {QUANTITIES} columns "
+          f"({idx.uncompressed_bytes() / 1e6:.1f} MB of bitmap, {idx.compressed_bytes() / 1e6:.1f} MB "
+          f"compressed): every stream == golden, counts and rows == numpy; counts "
+          f"{ {name: idx.count(s) for name, s in got.items()} }", flush=True)
+    return dict(times=times, idx=idx, q6=queries["q6_quantity_lt_24"][0])
+
+
+def phase_times(cuda, card, proto, query, index_times):
+    """6. CUDA-event ms, kernel against plain; host-clock seconds of the index."""
+    import torch
+
+    from wah_tpu_torch import golden
+    from wah_tpu_torch.convert import words_to_tensor
+    from wah_tpu_torch.ops import logical
+    from wah_tpu_torch.ops.cuda import decode_kernel as dk
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+    from wah_tpu_torch.ops.cuda import stitch2
+
+    p = proto
+    n = PROTOCOL_BLOCKS * 992
     timed = {
-        "encode_tiles": (lambda: ek.encode_tiles(ints2d, nv), lambda: ek.encode_tiles_plain(ints2d, nv)),
-        "stitch_tiles_v2": (lambda: stitch2.stitch_tiles_v2(staging, offsets_ext),
-                            lambda: stitch2.stitch_tiles_plain(staging, offsets_ext)),
-        "prescan_words": (lambda: dk.prescan_words(stream, vc, rows),
-                          lambda: dk.prescan_words_plain(stream, vc, rows)),
-        "decode_blocks": (lambda: dk.decode_blocks(words_t, g_base, meta, nbo),
-                          lambda: dk.decode_blocks_plain(words_t, g_base, meta, nbo)),
-        "encode pipeline": (lambda: ek.encode_padded(ints, golden.chunk_count(n)),
-                            lambda: ek.encode_padded_plain(ints, golden.chunk_count(n))),
-        "decode pipeline": (lambda: dk.decode(stream, m, nbo * 1024),
-                            lambda: dk.decode_plain(stream, m, nbo * 1024)),
+        "encode_tiles": (lambda: ek.encode_tiles(p["ints2d"], p["nv"]),
+                         lambda: ek.encode_tiles_plain(p["ints2d"], p["nv"])),
+        "stitch_tiles_v2": (lambda: stitch2.stitch_tiles_v2(p["staging"], p["offsets_ext"]),
+                            lambda: stitch2.stitch_tiles_plain(p["staging"], p["offsets_ext"])),
+        "prescan_words": (lambda: dk.prescan_words(p["stream"], p["vc"], p["rows"]),
+                          lambda: dk.prescan_words_plain(p["stream"], p["vc"], p["rows"])),
+        "decode_blocks": (lambda: dk.decode_blocks(p["words_t"], p["g_base"], p["meta"], p["nbo"]),
+                          lambda: dk.decode_blocks_plain(p["words_t"], p["g_base"], p["meta"], p["nbo"])),
+        "stitch_tiles": (lambda: ek.stitch_tiles(p["staging"], p["offsets_ext"]),
+                         lambda: stitch2.stitch_tiles_plain(p["staging"], p["offsets_ext"])),
+        "encode pipeline": (lambda: ek.encode_padded(p["ints"], golden.chunk_count(n), stitch="v3"),
+                            lambda: ek.encode_padded_plain(p["ints"], golden.chunk_count(n), stitch="v3")),
+        "decode pipeline": (lambda: dk.decode(p["stream"], p["m"], p["nbo"] * 1024),
+                            lambda: dk.decode_plain(p["stream"], p["m"], p["nbo"] * 1024)),
     }
     ms = {}
-    for name, (kernel_fn, plain_fn) in timed.items():
+
+    def measure(name, kernel_fn, plain_fn, gb, what):
         # plain, kernel, kernel, plain: compare only within this run
         p1 = cuda_ms(plain_fn, 3)
         k1 = cuda_ms(kernel_fn, 20)
         k2 = cuda_ms(kernel_fn, 20)
         p2 = cuda_ms(plain_fn, 3)
         ms[name] = (min(k1, k2), min(p1, p2))
-        gbs = data.nbytes / 1e6 / ms[name][0]
         print(f"[6 times] {name}: kernel {ms[name][0]:.4f} ms, plain {ms[name][1]:.4f} ms "
-              f"(kernel {gbs:.2f} GB/s of bitmap) on {card}")
-    print(f"[6 times] compression ratio (words / ints): {ratio}")
+              f"(kernel {gb / ms[name][0] * 1e3:.2f} GB/s of {what}) on {card}", flush=True)
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": ms[name][0], "plain_ms": ms[name][1]}
-        for name, src, rep in KERNELS
-    ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    for name, (kernel_fn, plain_fn) in timed.items():
+        measure(name, kernel_fn, plain_fn, p["data"].nbytes / 1e9, "bitmap")
+    # K6 against K2 on the same staging: the protocol's (2^-4, dense), the
+    # all-zero bitmap's, and 130 MB stagings at the densities between, where
+    # the "auto" stitch chooses (K6 iff total <= 3/8 of capacity)
+    stagings = [("2^-4 (protocol)", p["staging"], p["offsets_ext"])]
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+    for ands in (8, 12, 16):
+        x = torch.randint(-2**31, 2**31, p["ints2d"].shape, generator=gen, dtype=torch.int32,
+                          device=cuda)
+        for _ in range(ands - 1):
+            x &= torch.randint(-2**31, 2**31, x.shape, generator=gen, dtype=torch.int32, device=cuda)
+        st, c = ek.encode_tiles(x, p["nv"])
+        off = torch.cat([c.new_zeros(1), torch.cumsum(c[:, 0], 0, dtype=torch.int32)])
+        stagings.append((f"2^-{ands}", st, off))
+    stagings.append(("all-zero", p["staging_z"], p["offsets_z"]))
+    for label, st, off in stagings:
+        k6 = cuda_ms(lambda: ek.stitch_tiles(st, off), 20)
+        k2 = cuda_ms(lambda: stitch2.stitch_tiles_v2(st, off), 20)
+        k6b = cuda_ms(lambda: ek.stitch_tiles(st, off), 20)
+        k2b = cuda_ms(lambda: stitch2.stitch_tiles_v2(st, off), 20)
+        pl = cuda_ms(lambda: stitch2.stitch_tiles_plain(st, off), 3)
+        total = int(off[-1])
+        print(f"[6 times] stitch of the {label} staging ({total} words, "
+              f"{total / st.numel():.4f} of capacity): K6 {min(k6, k6b):.4f} ms, "
+              f"K2 {min(k2, k2b):.4f} ms, plain {pl:.4f} ms on {card}", flush=True)
+
+    # the query folds and the pairwise AND at the query shape
+    q = query
+    words, totals, cap, qn = q["words"], q["totals"], q["cap"], q["n"]
+    col_bytes = qn * 4
+    m_a, m_b = int(totals[0]), int(totals[1])
+    for name, k, fn in (
+        ("k16 OR fold", 16, lambda plain: logical.logical_reduce_flat(
+            words, 16, totals, "or", qn, plain)),
+        ("pairwise AND", 2, lambda plain: logical.logical_op(
+            words[:cap], m_a, words[cap : 2 * cap], m_b, "and", qn, plain)),
+    ):
+        measure(name, lambda: fn(False), lambda: fn(True), k * col_bytes / 1e9, "logical bitmap")
+
+    # the index through the API, host clock (numpy in and out), and Q6's
+    # device pipeline alone on device-resident columns (CUDA events)
+    t = index_times["times"]
+    idx, q6 = index_times["idx"], index_times["q6"]
+    q6_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        q6(idx)
+        q6_s.append(time.perf_counter() - t0)
+    cols = [idx.column(v) for v in range(23)]
+    M = -(-max(map(len, cols)) // 1024) * 1024
+    flat = np.zeros((23, M), np.uint32)
+    for i, c in enumerate(cols):
+        flat[i, : len(c)] = c
+    flat_dev = words_to_tensor(flat.reshape(-1), cuda)
+    ms_dev = torch.tensor([len(c) for c in cols], dtype=torch.int32, device=cuda)
+    q6_dev = cuda_ms(lambda: logical.logical_reduce_flat(flat_dev, 23, ms_dev, "or", idx.n_ints), 10)
+    print(f"[6 times] index over {LINEITEM_ROWS} rows: build {t['build_s']:.3f} s; "
+          f"Q6 (23-way OR) first {t['q6_quantity_lt_24']:.4f} s, then min {min(q6_s):.4f} s of 5 "
+          f"({23 * idx.n_ints * 4 / min(q6_s) / 1e9:.2f} logical GB/s), of which the device "
+          f"pipeline {q6_dev:.4f} ms; other queries "
+          f"{ {k: round(v, 4) for k, v in t.items() if k not in ('build_s', 'q6_quantity_lt_24')} } s "
+          f"on {card}", flush=True)
+    return ms
 
 
 if __name__ == "__main__":

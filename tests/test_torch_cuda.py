@@ -1,11 +1,14 @@
-"""On-card tests of the CUDA kernels K1-K4 (marker `cuda`).
+"""On-card tests of the CUDA kernels K1-K4 and K6 (marker `cuda`).
 
 Each kernel against its plain torch version on the same CUDA tensors, and
 WahCodec("cuda") against the golden model, on small edge cases that
 chip_smoke.py does not reach: partial and shard-offset validity, the
-long-fill and granule-window-extreme streams, a decoded span. Tolerance
-is zero (an integer codec). They skip without a CUDA device. The card's
-machine has no JAX, so run them there without the JAX conftest:
+long-fill and granule-window-extreme streams, a decoded span; K6's
+offset ties, exact-tile, full and one-word totals; batched columns with a
+capacity-filling column and garbage tails; the logical pipeline.
+Tolerance is zero (an integer codec). They skip without a CUDA device.
+The card's machine has no JAX, so run them there without the JAX
+conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -13,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from wah_tpu_torch import WahCodec, golden
+from wah_tpu_torch import BitmapIndex, WahCodec, golden
 from wah_tpu_torch.constants import BLOCK_CHUNKS, BLOCK_INTS
 from wah_tpu_torch.convert import tensor_to_words, words_to_tensor
 from wah_tpu_torch.ops.cuda import decode_kernel as dk
 from wah_tpu_torch.ops.cuda import encode_kernel as ek
+from wah_tpu_torch.ops import logical
 from wah_tpu_torch.ops.cuda import stitch2
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +127,161 @@ def test_launch_counts_only_on_cuda(cuda):
     WahCodec(cuda).decompress(WahCodec(cuda).compress(data)[0])
     assert ek.encode_tiles.launches == before[0] + 1
     assert dk.decode_blocks.launches == before[1] + 1
+
+
+# per-row word counts: offset ties in the middle and at the end, a total
+# that is an exact multiple of 1024, every row full, a single word, and
+# sparse rows (many rows to a tile)
+STITCH_COUNTS = {
+    "ties_middle_and_end": [0] * 5 + [3, 0, 0, 700] + [1024] * 3 + [0] * 20,
+    "exact_tiles": [512, 512, 0, 1024, 0, 1000, 24],
+    "all_rows_full": [1024] * 8,
+    "one_word": [1] + [0] * 9,
+    "one_word_per_row": [1] * 3000,
+    "random": list(np.random.default_rng(5).integers(0, 1025, 200)),
+    "empty": [0] * 7,
+}
+
+
+@pytest.mark.parametrize("name", STITCH_COUNTS)
+def test_stitch_tiles_matches_plain(cuda, name):
+    counts = np.asarray(STITCH_COUNTS[name], np.int64)
+    nb = len(counts)
+    rng = np.random.default_rng(nb)
+    staging = rng.integers(1, 2**31 - 1, size=(nb, BLOCK_CHUNKS)).astype(np.int32)
+    staging[np.arange(BLOCK_CHUNKS)[None, :] >= counts[:, None]] = 0
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    total = int(offsets[-1])
+    end = -(-total // BLOCK_CHUNKS) * BLOCK_CHUNKS  # the last tile holding words
+    st, off = torch.from_numpy(staging).to(cuda), torch.from_numpy(offsets).to(cuda)
+    before = ek.stitch_tiles.launches
+    got = ek.stitch_tiles(st, off)
+    want = stitch2.stitch_tiles_plain(st, off)
+    assert ek.stitch_tiles.launches == before + 1
+    assert got.shape == (nb * BLOCK_CHUNKS,)
+    assert torch.equal(got[:end], want[:end])  # the prefix, then zeros to the tile's end
+    assert not want[total:end].any()
+
+
+@pytest.mark.parametrize("stitch", ["v1", "v3", "auto"])
+@pytest.mark.parametrize("name", ["sparse", "dense", "all_zeros", "odd_size"])
+def test_encode_padded_stitches_match_golden(cuda, name, stitch):
+    data = BITMAPS[name]()
+    nv = golden.chunk_count(len(data))
+    nb = -(-nv // BLOCK_CHUNKS)
+    padded = np.zeros(nb * BLOCK_INTS, np.uint32)
+    padded[: len(data)] = data
+    words, total = ek.encode_padded(words_to_tensor(padded, cuda), nv, stitch=stitch)
+    np.testing.assert_array_equal(tensor_to_words(words[: int(total)]), golden.encode(data))
+
+
+def _batch_columns(n: int) -> np.ndarray:
+    rng = np.random.default_rng(42)
+    return np.stack([
+        _bitmap(n, 1 / 64, 11),
+        rng.integers(1, 2**32, size=n, dtype=np.uint64).astype(np.uint32),  # fills its capacity
+        np.zeros(n, np.uint32),
+        _bitmap(n, 0.5, 12),
+        np.full(n, 0xFFFFFFFF, np.uint32),
+    ])
+
+
+@pytest.mark.parametrize("group_rows", [1 << 19, 16])
+def test_batch_kernels_match_plain(cuda, group_rows):
+    nb = 8
+    cols = _batch_columns(nb * BLOCK_INTS)
+    C, nv = cols.shape[0], golden.chunk_count(cols.shape[1])
+    rows = words_to_tensor(cols.reshape(-1), cuda).view(C * nb, BLOCK_INTS)
+    words, totals = ek.encode_rows_batch(rows, C, nv, group_rows=group_rows)
+    words_p, totals_p = ek.encode_rows_batch_plain(rows, C, nv, group_rows=group_rows)
+    assert torch.equal(totals, totals_p) and int(totals[1]) == nb * BLOCK_CHUNKS
+    words, words_p = words.view(C, -1), words_p.view(C, -1)
+    for c in range(C):
+        t = int(totals[c])
+        assert torch.equal(words[c, :t], words_p[c, :t]), c
+        np.testing.assert_array_equal(tensor_to_words(words[c, :t]), golden.encode(cols[c]))
+
+    # decode the same streams behind tails of random words, fill words among them
+    Mcap = nb * BLOCK_CHUNKS + BLOCK_CHUNKS
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.integers(-2**31, 2**31, size=(C, Mcap)).astype(np.int32)).to(cuda)
+    for c in range(C):
+        flat[c, : int(totals[c])] = words[c, : int(totals[c])]
+    ms = totals.to(torch.int32)
+    cap = nb * BLOCK_CHUNKS
+    ints = dk.decode_rows_batch(flat.view(-1), C, ms, cap)
+    ints_p = dk.decode_rows_batch_plain(flat.view(-1), C, ms, cap)
+    assert torch.equal(ints, ints_p)
+    np.testing.assert_array_equal(tensor_to_words(ints).reshape(C, -1), cols)
+
+
+def test_codec_batch_on_cuda_matches_golden(cuda):
+    cols = _batch_columns(5 * BLOCK_INTS + 77)
+    codec = WahCodec(cuda)
+    words, totals = codec.compress_batch(cols)
+    for c in range(cols.shape[0]):
+        np.testing.assert_array_equal(words[c, : totals[c]], golden.encode(cols[c]))
+    np.testing.assert_array_equal(codec.decompress_batch(words, totals, cols.shape[1]), cols)
+    # columns of unequal length expand unequally: one single-stream decode each
+    short = golden.encode(cols[0][: 2 * BLOCK_INTS])
+    w2 = np.zeros((2, max(len(short), totals[3])), np.uint32)
+    w2[0, : len(short)], w2[1, : totals[3]] = short, words[3, : totals[3]]
+    before = dk.decode_blocks.launches
+    out = codec.decompress_batch(w2, np.array([len(short), totals[3]]))
+    assert dk.decode_blocks.launches == before + 2
+    np.testing.assert_array_equal(out[0, : 2 * BLOCK_INTS], cols[0][: 2 * BLOCK_INTS])
+    np.testing.assert_array_equal(out[1, : cols.shape[1]], cols[3])
+
+
+@pytest.mark.parametrize("op", sorted(logical.OPS))
+def test_logical_pipeline_matches_plain(cuda, op):
+    n = 9 * BLOCK_INTS + 111
+    a, b = _bitmap(n, 1 / 64, 21), _bitmap(n, 1 / 64, 22)
+    sa, sb = golden.encode(a), golden.encode(b)
+    M = -(-max(len(sa), len(sb)) // BLOCK_CHUNKS) * BLOCK_CHUNKS
+    ta, tb = torch.zeros(M, dtype=torch.int32, device=cuda), torch.zeros(M, dtype=torch.int32, device=cuda)
+    ta[: len(sa)], tb[: len(sb)] = words_to_tensor(sa, cuda), words_to_tensor(sb, cuda)
+    before = ek.stitch_tiles.launches
+    words, total = logical.logical_op(ta, len(sa), tb, len(sb), op, n)
+    words_p, total_p = logical.logical_op(ta, len(sa), tb, len(sb), op, n, plain=True)
+    assert int(total) == int(total_p)
+    assert torch.equal(words[: int(total)], words_p[: int(total)])
+    want = {"and": a & b, "or": a | b, "xor": a ^ b, "andnot": a & ~b}[op]
+    np.testing.assert_array_equal(tensor_to_words(words[: int(total)]), golden.encode(want))
+    # "auto" takes K6 for the sparse AND (~2^-12) and K2 for the rest
+    assert ek.stitch_tiles.launches == before + (op == "and")
+
+
+@pytest.mark.parametrize("op", ["or", "and", "xor"])
+@pytest.mark.parametrize("k", [2, 3, 5, 16])
+def test_logical_fold_matches_plain(cuda, op, k):
+    n = 4 * BLOCK_INTS + 37
+    cols = [_bitmap(n, d, 40 + i) for i, d in zip(range(k), [0.02, 0.6, 0.0, 1.0] * 4)]
+    streams = [golden.encode(c) for c in cols]
+    M = -(-max(map(len, streams)) // BLOCK_CHUNKS) * BLOCK_CHUNKS
+    flat = np.zeros((k, M), np.uint32)
+    for i, s in enumerate(streams):
+        flat[i, : len(s)] = s
+    ft = words_to_tensor(flat.reshape(-1), cuda)
+    ms = torch.tensor([len(s) for s in streams], dtype=torch.int32, device=cuda)
+    words, total = logical.logical_reduce_flat(ft, k, ms, op, n)
+    words_p, total_p = logical.logical_reduce_flat(ft, k, ms, op, n, plain=True)
+    assert int(total) == int(total_p)
+    assert torch.equal(words[: int(total)], words_p[: int(total)])
+    fold = {"or": np.bitwise_or, "and": np.bitwise_and, "xor": np.bitwise_xor}[op]
+    np.testing.assert_array_equal(tensor_to_words(words[: int(total)]), golden.encode(fold.reduce(cols)))
+
+
+def test_index_on_cuda_matches_numpy(cuda):
+    rng = np.random.default_rng(7)
+    values = rng.integers(0, 8, size=20_000 * 32 + 17)
+    values[100_000:300_000] = 3
+    idx = BitmapIndex.build(values, 8, codec=WahCodec(cuda))
+    np.testing.assert_array_equal(idx.rows(idx.query_eq(3)), np.flatnonzero(values == 3))
+    np.testing.assert_array_equal(idx.rows(idx.query_range(2, 5)),
+                                  np.flatnonzero((values >= 2) & (values <= 5)))
+    assert idx.count(idx.query_in([0, 7])) == int(np.isin(values, [0, 7]).sum())
+    assert idx.count(idx.query_not(3)) == int((values != 3).sum())
+    before = ek.stitch_tiles.launches
+    empty = idx.codec.logical(idx.column(0), idx.column(1), "and", idx.n_ints)
+    assert ek.stitch_tiles.launches == before + 1 and idx.count(empty) == 0

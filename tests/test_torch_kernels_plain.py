@@ -1,4 +1,4 @@
-"""Plain versions of the port's kernels K1-K4 against the Pallas kernels.
+"""Plain versions of the port's kernels K1-K4 and K6 against the Pallas kernels.
 
 The same numpy inputs (the case matrix of test_pallas.py, the long-fill
 and granule-window-extreme streams) go through wah_tpu's Pallas kernels,
@@ -9,6 +9,7 @@ through wah_tpu_torch.ops.cuda's plain versions and CPU wrappers:
   K2 stitch2.stitch_tiles_v2     <-> stitch_tiles_plain   prefix up to the total
   K3 decode_kernel.prescan_words <-> prescan_words_plain  both outputs in full
   K4 decode_kernel.decode        <-> decode_plain         ints[:n_ints], n_ints
+  K6 encode_kernel.stitch_tiles  <-> stitch_tiles_plain   prefix, and the zeroed last tile
 
 Tolerance is zero: an integer codec must agree bit for bit. Every case is
 padded to one shape per kernel so that each Pallas kernel compiles once.
@@ -89,6 +90,43 @@ def test_stitch_plain_matches_pallas(name, gen, explicit_counts):
         assert words.shape == (NB * BLOCK_CHUNKS,)
         np.testing.assert_array_equal(_n(words)[:total], jwords[:total])
     np.testing.assert_array_equal(jwords[:total], golden.encode(gen()))
+
+
+@pytest.mark.parametrize("name,gen", CASES, ids=IDS)
+def test_stitch_tiles_plain_matches_pallas(name, gen):
+    """K6's contract: the stream up to the total, zeros from there to the
+    end of the last tile that holds words."""
+    ints2d, nv = _blocks(gen())
+    jstaging, jcounts = jax.jit(jek.encode_tiles)(ints2d, np.array([nv, 0], np.int32))
+    counts = np.asarray(jcounts)[:, 0]
+    offsets_ext = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    total = int(offsets_ext[-1])
+    end = -(-total // BLOCK_CHUNKS) * BLOCK_CHUNKS
+    jwords = np.asarray(jax.jit(jek.stitch_tiles)(jstaging, offsets_ext))
+    assert not jwords[total:end].any()
+    staging = _t(np.asarray(jstaging).reshape(-1)).view(NB, -1)
+    before = ek.stitch_tiles.launches
+    for fn in (stitch2.stitch_tiles_plain, ek.stitch_tiles):
+        words = fn(staging, torch.from_numpy(offsets_ext))
+        assert words.shape == (NB * BLOCK_CHUNKS,)
+        np.testing.assert_array_equal(_n(words)[:end], jwords[:end])
+    assert ek.stitch_tiles.launches == before  # the CPU takes the plain version
+    np.testing.assert_array_equal(jwords[:total], golden.encode(gen()))
+
+
+@pytest.mark.parametrize("name", ["random_sparse", "random_dense", "all_zeros"])
+def test_encode_padded_auto_stitch_matches_pallas(name):
+    """encode_padded's default "auto" stitch (K6 for a stream that fills at
+    most 3/8 of its capacity, K2 otherwise) against wah_tpu's lax.cond."""
+    ints2d, nv = _blocks(dict(CASES)[name]())
+    jwords, jtotal = jax.jit(jek.encode_padded)(ints2d.reshape(-1), np.int32(nv))
+    total = int(jtotal)
+    for stitch in ("auto", "v1", "v3"):
+        words, t = ek.encode_padded(_t(ints2d.reshape(-1)), nv, stitch=stitch)
+        assert int(t) == total
+        np.testing.assert_array_equal(_n(words)[:total], np.asarray(jwords)[:total])
+    with pytest.raises(ValueError, match="stitch"):
+        ek.encode_padded(_t(ints2d.reshape(-1)), nv, stitch="v2")
 
 
 def _prescan_inputs(data):

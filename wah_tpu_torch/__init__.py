@@ -7,13 +7,19 @@ reference it is tested against.
 Public API:
   compress(bitmap, device)             -> (stream, timings)
   decompress(stream, out_ints, device) -> (bitmap, timings)
-  WahCodec(device)                     the codec on one torch device
+  WahCodec(device)                     the codec on one torch device:
+                                       compress / decompress, compress_batch /
+                                       decompress_batch, logical / logical_many
+  BitmapIndex.build(values, cardinality, codec=WahCodec(device))
+                                       the bitmap index over compressed columns
   ops.bits / ops.encode / ops.decode   plain torch ports of wah_tpu.ops
-  ops.cuda.*                           kernels K1-K4 with their plain versions
+  ops.logical                          compressed-domain AND/OR/XOR/ANDNOT/NOT
+  ops.cuda.*                           kernels K1-K4 and K6 with their plain versions
   golden                               NumPy oracle (copy of wah_tpu.golden)
 """
 from . import constants, golden
 from .api import WahCodec, compress, decompress, validate_stream
+from .index import BitmapIndex
 
 __version__ = "0.1.0"
 
@@ -21,6 +27,7 @@ __all__ = [
     "constants",
     "golden",
     "WahCodec",
+    "BitmapIndex",
     "compress",
     "decompress",
     "validate_stream",

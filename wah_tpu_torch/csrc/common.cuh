@@ -30,6 +30,25 @@ __device__ __forceinline__ int warp_inclusive_scan(int x) {
   return x;
 }
 
+// Largest i in [lo, hi) with a[i] <= key, for a non-decreasing `a` with
+// a[lo] <= key (on ties, the largest such i). A 32-way search: each step
+// probes 32 evenly spaced entries with one ballot and keeps the span after
+// the last probe at or below `key`, so ~log32(hi - lo) steps. All 32 lanes
+// of the warp must call it; each gets the result.
+__device__ __forceinline__ int warp_search_last_le(const int32_t* __restrict__ a, int lo,
+                                                   int hi, int key) {
+  const int lane = lane_id();
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int p = lo + lane * step;
+    const unsigned le = __ballot_sync(kFullMask, p < hi && a[p] <= key);
+    // `a` is sorted, so `le` is a prefix of lanes that holds lane 0
+    lo += (le ? 31 - __clz(le) : 0) * step;
+    hi = min(lo + step, hi);
+  }
+  return lo;
+}
+
 // Exclusive prefix sum over a block of exactly 1024 threads (32 warps).
 // `buf` is 33 ints of shared memory, free for this call; *total gets the
 // block's sum. Contains two __syncthreads(): every thread must call it.

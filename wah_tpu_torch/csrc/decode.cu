@@ -17,8 +17,10 @@
 // meta = [n_chunks, m, chunk_base, pos_mask] -> (nbo, 992) ints, block bo
 // holding chunks [chunk_base + 1024 bo, + 1024) merged back to 32 bits.
 // Design: one CTA of 1024 threads per output block.
-//   1. warp 0 finds the covering granule, max{g : g_base[g] <= base}, by a
-//      32-way search over g_base (a ballot per step, ~5 steps);
+//   1. warp 0 finds the covering granule, max{g : g_base[g] <= base}, by
+//      the 32-way search of common.cuh (a ballot per step, ~5 steps); on
+//      ties it takes the largest g, so a batched column that fills its
+//      capacity hands the next column's first block to that column;
 //   2. the 9-granule (1,152-word) window from it goes to shared memory:
 //      the covering word of the block's first chunk lies in its first
 //      granule and the block consumes at most 1,024 words;
@@ -84,18 +86,10 @@ decode_blocks_kernel(const uint32_t* __restrict__ words_t, const int32_t* __rest
   const int n_chunks = meta[0], m = meta[1], pos_mask = meta[3];
   const int base = meta[2] + blockIdx.x * kBlockChunks;
 
-  // 1. covering granule; invariant: g_base[lo] <= base (g_base[0] == 0)
+  // 1. covering granule (g_base[0] == 0 <= base)
   if (t < 32) {
-    int lo = 0, hi = n_rows;
-    while (hi - lo > 1) {
-      const int step = (hi - lo + 31) / 32;
-      const int p = lo + t * step;
-      const unsigned le = __ballot_sync(kFullMask, p < hi && g_base[p] <= base);
-      // g_base is sorted, so `le` is a prefix of lanes that holds lane 0
-      lo += (le ? 31 - __clz(le) : 0) * step;
-      hi = min(lo + step, hi);
-    }
-    if (t == 0) s_granule = lo;
+    const int g = warp_search_last_le(g_base, 0, n_rows, base);
+    if (t == 0) s_granule = g;
   }
   __syncthreads();
   const int g = s_granule;

@@ -2,13 +2,14 @@
 
 All of wah_tpu_torch/csrc/*.cu is compiled by nvcc for sm_90a into one
 shared library with a plain C interface and loaded with ctypes (no
-PyTorch headers: a build takes seconds, not minutes). The build happens
-at first use, into wah_tpu_torch/_build/ (git-ignored), under a name
-keyed on a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads at once. nvcc's output, with ptxas's register
-and shared-memory report, is kept beside the library as a .log file. A
-failed build raises with nvcc's output; nothing falls back to the plain
-versions.
+PyTorch headers: a build takes seconds, not minutes). Each source is
+compiled by its own nvcc process, all started together, and the objects
+are linked by one more. The build happens at first use, into
+wah_tpu_torch/_build/ (git-ignored), under a name keyed on a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one
+loads at once. nvcc's output, with ptxas's register and shared-memory
+report, is kept beside the library as a .log file. A failed build raises
+with nvcc's output; nothing falls back to the plain versions.
 
 Every C entry takes device pointers and the CUDA stream as void*, sizes
 as int, and returns cudaGetLastError() after its launch.
@@ -30,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -39,6 +40,7 @@ _N = ctypes.c_int
 _SIGNATURES = {
     "wah_encode_tiles": [_P, _P, _P, _P, _N, _P],
     "wah_stitch_tiles": [_P, _P, _P, _P, _N, _P],
+    "wah_stitch_gather": [_P, _P, _P, _N, _P],
     "wah_prescan_words": [_P, _P, _P, _P, _N, _N, _P],
     "wah_decode_blocks": [_P, _P, _P, _P, _N, _N, _P],
 }
@@ -66,13 +68,33 @@ def library_path() -> Path:
 
 def _build(lib: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{lib.stem}.{os.getpid()}"
+    objs, compiles = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in compiles:
+        out = proc.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode:
+            failed.append(out)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    if res.returncode != 0:
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        if res.returncode:
+            failed.append(res.stdout + res.stderr)
+    lib.with_suffix(".log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
 
 

@@ -6,8 +6,10 @@ counterpart of `_run_decode`) expands and merges each 1024-chunk output
 block. Both run their CUDA kernel (wah_tpu_torch/csrc/decode.cu) for a
 CUDA tensor and their plain version for a CPU tensor. `decode` is the
 decode pipeline, K3 -> exclusive scan of the granule sums (torch.cumsum,
-outside the kernels as in wah_tpu) -> K4; `decode_plain` runs the same
-pipeline through the plain versions.
+outside the kernels as in wah_tpu) -> K4; `decode_rows_batch` the same
+over batched columns (K3 with per-column valid counts, K4 with a
+per-column position mask). Each `_plain` twin runs the same pipeline
+through the plain versions.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from ...convert import to_i32
 from .. import bits
 from ..decode import expand_at, word_counts
 from ._args import check, on_cpu
+from ._batch import rebase_exclusive_per_col
 
 __all__ = [
     "prescan_words",
@@ -26,6 +29,9 @@ __all__ = [
     "decode_blocks_plain",
     "decode",
     "decode_plain",
+    "decode_batch",
+    "decode_rows_batch",
+    "decode_rows_batch_plain",
 ]
 
 GRANULE = 128  # words per granule of the offset tables
@@ -93,7 +99,11 @@ def decode_blocks_plain(
     """Plain torch version of decode_blocks."""
     n_chunks, m, chunk_base, pos_mask = meta.tolist()
     words = words_t.reshape(-1)
-    cnt = word_counts(words, m).view(-1, GRANULE).to(_I64)
+    # zero words (lanes K3 masked; never a valid word) count 0 here, which
+    # keeps the offsets sorted across batched columns for the search; K4
+    # counts them as literals inside its window. Either way they cover
+    # only positions that the mask kills.
+    cnt = torch.where(words == 0, 0, word_counts(words, m)).view(-1, GRANULE).to(_I64)
     offsets = (g_base.to(_I64)[:, None] + torch.cumsum(cnt, dim=1) - cnt).reshape(-1)
     pos = chunk_base + torch.arange(nbo * BLOCK_CHUNKS, dtype=_I64, device=words.device)
     chunks = torch.where((pos & pos_mask) < n_chunks, expand_at(words, offsets, pos), 0)
@@ -174,3 +184,66 @@ def decode_plain(
     return _decode(
         words, m, chunk_capacity, chunk_base, prescan_words_plain, decode_blocks_plain
     )
+
+
+def _decode_rows_batch(words_flat, C: int, ms, col_chunk_capacity: int, prescan, blocks):
+    cap = col_chunk_capacity
+    check(words_flat, "words_flat", (None,))
+    check(ms, "ms", (C,))
+    total = words_flat.shape[0]
+    if C < 1 or total % C or (total // C) % BLOCK_CHUNKS:
+        raise ValueError(f"{total} words do not split into {C} columns of whole 1024-word tiles")
+    if cap < BLOCK_CHUNKS or cap & (cap - 1):
+        raise ValueError(f"col_chunk_capacity must be a power of two >= 1024, got {cap}")
+    if C * cap > (1 << 31) - 1:
+        raise ValueError(
+            f"{C} columns x {cap} chunks exceed the int32 chunk positions; decode fewer columns"
+        )
+    gpc = total // C // GRANULE  # granules per column; none straddles two columns
+    rel = GRANULE * torch.arange(gpc, dtype=torch.int32, device=words_flat.device)
+    vc = (ms[:, None] - rel[None, :]).clamp(0, GRANULE).reshape(-1)
+    words_t, g_sums = prescan(words_flat, vc, C * gpc)
+    g_base, col_totals = rebase_exclusive_per_col(g_sums, C, gpc, cap)
+    # every column expands to the same chunk count (equal-length columns)
+    meta = torch.cat(
+        [col_totals[:1], torch.tensor([total, 0, cap - 1], dtype=torch.int32, device=ms.device)]
+    )
+    return blocks(words_t, g_base, meta, C * cap // BLOCK_CHUNKS).reshape(-1)
+
+
+def decode_rows_batch(
+    words_flat: torch.Tensor, C: int, ms: torch.Tensor, col_chunk_capacity: int
+) -> torch.Tensor:
+    """Batched-column decode over flat words: (C*Mcap,) int32, Mcap % 1024
+    == 0, column c's stream at words_flat[c*Mcap:][:ms[c]] (words past it
+    may be anything), ms (C,) int32 -> (C * cap//1024 * 992,) int32;
+    column c's bitmap starts at c * cap//1024 * 992, zero past its chunk
+    count. cap = col_chunk_capacity, a power of two >= 1024 that every
+    column fits in; every column must expand to the same chunk count
+    (equal-length columns).
+
+    K3 zeroes each column's words past ms[c] through the per-granule valid
+    counts; the granule sums are rebased to the column bases c*cap; K4
+    decodes all C*cap/1024 blocks with pos_mask = cap - 1, so the zeroed
+    tail words (counted as literals in its window) land at positions the
+    mask kills. Raises ValueError when C*cap exceeds int32 positions.
+    """
+    return _decode_rows_batch(
+        words_flat, C, ms, col_chunk_capacity, prescan_words, decode_blocks
+    )
+
+
+def decode_rows_batch_plain(
+    words_flat: torch.Tensor, C: int, ms: torch.Tensor, col_chunk_capacity: int
+) -> torch.Tensor:
+    """decode_rows_batch through the plain versions, on any device."""
+    return _decode_rows_batch(
+        words_flat, C, ms, col_chunk_capacity, prescan_words_plain, decode_blocks_plain
+    )
+
+
+def decode_batch(
+    words2d: torch.Tensor, ms: torch.Tensor, col_chunk_capacity: int
+) -> torch.Tensor:
+    """decode_rows_batch of (C, Mcap) streams (a free view in torch)."""
+    return decode_rows_batch(words2d.reshape(-1), words2d.shape[0], ms, col_chunk_capacity)

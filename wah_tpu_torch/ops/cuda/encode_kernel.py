@@ -1,11 +1,16 @@
-"""K1: block encoder — counterpart of wah_tpu/ops/pallas/encode_kernel.py.
+"""K1 block encoder and K6 gather stitch — counterpart of
+wah_tpu/ops/pallas/encode_kernel.py.
 
-`encode_tiles` encodes each 992-int block into its WAH words: CUDA
+`encode_tiles` (K1) encodes each 992-int block into its WAH words: CUDA
 kernel wah_tpu_torch/csrc/encode.cu for a CUDA tensor,
-`encode_tiles_plain` for a CPU tensor. `encode_padded` is the encode
-pipeline, K1 -> exclusive scan of the counts (torch.cumsum, outside the
-kernels as in wah_tpu) -> K2; `encode_padded_plain` runs the same
-pipeline through the plain versions.
+`encode_tiles_plain` for a CPU tensor. `stitch_tiles` (K6) lays the
+blocks' words into the dense stream tile by output tile
+(wah_tpu_torch/csrc/stitch_gather.cu), with K2's contract plus a zeroed
+last tile. `encode_padded` is the encode pipeline, K1 -> exclusive scan
+of the counts (torch.cumsum, outside the kernels as in wah_tpu) -> K2 or
+K6; `encode_rows_batch` the same over batched columns (K1 with a
+per-column position mask, K2 with per-row counts). Each `_plain` twin
+runs the same pipeline through the plain versions.
 """
 from __future__ import annotations
 
@@ -15,9 +20,19 @@ from ...constants import BLOCK_CHUNKS, BLOCK_INTS
 from .. import bits
 from ..encode import encode_blocks
 from ._args import check, on_cpu
+from ._batch import rebase_exclusive_per_col
 from .stitch2 import stitch_tiles_plain, stitch_tiles_v2
 
-__all__ = ["encode_tiles", "encode_tiles_plain", "encode_padded", "encode_padded_plain"]
+__all__ = [
+    "encode_tiles",
+    "encode_tiles_plain",
+    "stitch_tiles",
+    "encode_padded",
+    "encode_padded_plain",
+    "encode_padded_batch",
+    "encode_rows_batch",
+    "encode_rows_batch_plain",
+]
 
 _IDENTITY_MASK = 0x7FFFFFFF
 
@@ -72,9 +87,43 @@ def encode_tiles(
 encode_tiles.launches = 0
 
 
-def _encode_padded(ints, n_valid_chunks: int, chunk_base: int, tiles, stitch):
+def stitch_tiles(staging: torch.Tensor, offsets_ext: torch.Tensor) -> torch.Tensor:
+    """(nb, 1024) int32 staging rows + exclusive word offsets (nb+1,) int32,
+    offsets_ext[nb] = total -> (nb*1024,) int32 stream: row b's first
+    offsets_ext[b+1] - offsets_ext[b] words land at offsets_ext[b]; the
+    words of the last partial 1024-word tile past the total are zero, and
+    words past that tile are unspecified.
+
+    The plain version is stitch2.stitch_tiles_plain: it zeroes everything
+    past the total, which meets this contract.
+    """
+    nb = staging.shape[0]
+    check(staging, "staging", (None, BLOCK_CHUNKS))
+    check(offsets_ext, "offsets_ext", (nb + 1,))
+    if on_cpu(staging, offsets_ext):
+        return stitch_tiles_plain(staging, offsets_ext)
+    out = torch.empty(nb * BLOCK_CHUNKS, dtype=torch.int32, device=staging.device)
+    if nb:
+        from ._build import launch
+
+        launch(
+            "wah_stitch_gather", staging.device, staging.data_ptr(), offsets_ext.data_ptr(),
+            out.data_ptr(), nb,
+        )
+        stitch_tiles.launches += 1
+    return out
+
+
+stitch_tiles.launches = 0
+
+STITCHES = ("v1", "v3", "auto")
+
+
+def _encode_padded(ints, n_valid_chunks: int, chunk_base: int, stitch: str, tiles, v3, v1):
     if ints.dim() != 1 or ints.shape[0] % BLOCK_INTS:
         raise ValueError(f"expected (nb*{BLOCK_INTS},) ints, got {tuple(ints.shape)}")
+    if stitch not in STITCHES:
+        raise ValueError(f"stitch must be one of {STITCHES}, got {stitch!r}")
     nb = ints.shape[0] // BLOCK_INTS
     # clamp the bound to this call's blocks (wah_tpu encode_kernel._clamped_nv):
     # a shard's padding rows must not count as valid
@@ -84,23 +133,106 @@ def _encode_padded(ints, n_valid_chunks: int, chunk_base: int, tiles, stitch):
     offsets_ext = torch.cat(
         [counts.new_zeros(1), torch.cumsum(counts[:, 0], dim=0, dtype=torch.int32)]
     )
-    return stitch(staging, offsets_ext), offsets_ext[-1]
+    total = offsets_ext[-1]
+    if stitch == "auto":
+        # the gather stitch iff the stream fills at most 3/8 of its capacity
+        # (wah_tpu encode_kernel.py:856-864): one host read of the total
+        total = total.cpu()
+        stitch = "v1" if int(total) * 8 <= nb * BLOCK_CHUNKS * 3 else "v3"
+    return (v1 if stitch == "v1" else v3)(staging, offsets_ext), total
 
 
 def encode_padded(
-    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0
+    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0, stitch: str = "auto"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Compress a block-aligned (nb*992,) int32 bitmap whose first
     `n_valid_chunks` chunks are live (chunk_base: global index of its
     first chunk). Returns (words (nb*1024,), total int32 0-dim); words
-    past total are unspecified."""
-    return _encode_padded(ints, n_valid_chunks, chunk_base, encode_tiles, stitch_tiles_v2)
+    past total are unspecified.
+
+    stitch: "v3" runs K2, "v1" K6, and "auto" (the default, as in
+    wah_tpu) K6 when the total is at most 3/8 of nb*1024 words and K2
+    otherwise. "auto" reads the total on the host to choose, and returns
+    it as a CPU tensor, so reading it again costs no second sync.
+    """
+    return _encode_padded(
+        ints, n_valid_chunks, chunk_base, stitch, encode_tiles, stitch_tiles_v2, stitch_tiles
+    )
 
 
 def encode_padded_plain(
-    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0
+    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0, stitch: str = "auto"
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """encode_padded through the plain versions, on any device."""
+    """encode_padded through the plain versions, on any device (both
+    stitches have the one plain version)."""
     return _encode_padded(
-        ints, n_valid_chunks, chunk_base, encode_tiles_plain, stitch_tiles_plain
+        ints, n_valid_chunks, chunk_base, stitch, encode_tiles_plain, stitch_tiles_plain,
+        stitch_tiles_plain,
     )
+
+
+def _encode_rows_batch(ints2d, C: int, n_valid_chunks: int, group_rows: int, tiles, stitch):
+    check(ints2d, "ints2d", (None, BLOCK_INTS))
+    rows = ints2d.shape[0]
+    if C < 1 or rows % C:
+        raise ValueError(f"{rows} block rows do not split into {C} columns")
+    nb = rows // C
+    if nb & (nb - 1):
+        raise ValueError(f"blocks per column must be a power of two, got {nb}")
+    col_chunks = nb * BLOCK_CHUNKS
+    # validity wraps per column: chunk k of the group is valid iff
+    # (k & (col_chunks - 1)) < n_valid_chunks
+    nv3 = torch.tensor(
+        [n_valid_chunks, 0, col_chunks - 1], dtype=torch.int32, device=ints2d.device
+    )
+    G = max(1, min(C, group_rows // nb))  # columns per group (int32 positions)
+    words, totals = [], []
+    for c0 in range(0, C, G):
+        g = min(G, C - c0)
+        staging, counts = tiles(ints2d[c0 * nb : (c0 + g) * nb], nv3)
+        rc = counts[:, 0]
+        offsets, totals_g = rebase_exclusive_per_col(rc, g, nb, col_chunks)
+        offsets_ext = torch.cat([offsets, offsets[-1:] + rc[-1:]])
+        words.append(stitch(staging, offsets_ext, rc))
+        totals.append(totals_g)
+    if len(words) == 1:
+        return words[0], totals[0]
+    return torch.cat(words), torch.cat(totals)
+
+
+def encode_rows_batch(
+    ints2d: torch.Tensor, C: int, n_valid_chunks: int, group_rows: int = 1 << 19
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched-column encode over block rows: (C*nb, 992) int32, column c
+    owning rows [c*nb, (c+1)*nb), nb a power of two, every column with the
+    same `n_valid_chunks` -> (words (C*nb*1024,), totals (C,)) int32.
+    Column c's stream is words[c*nb*1024:][:totals[c]], equal to
+    encode_padded of that column alone; words past it are unspecified.
+
+    K1 runs with nv = [n_valid_chunks, 0, nb*1024 - 1] (validity by the
+    position within the column), the counts are rebased to exclusive
+    offsets from each column's base c*nb*1024, and K2 lays every column's
+    stream into its own slice, given the per-row counts because the
+    offsets jump at column bases. Columns go in groups of at most
+    `group_rows` block rows, which keeps chunk positions within int32.
+    """
+    return _encode_rows_batch(ints2d, C, n_valid_chunks, group_rows, encode_tiles, stitch_tiles_v2)
+
+
+def encode_rows_batch_plain(
+    ints2d: torch.Tensor, C: int, n_valid_chunks: int, group_rows: int = 1 << 19
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """encode_rows_batch through the plain versions, on any device."""
+    return _encode_rows_batch(
+        ints2d, C, n_valid_chunks, group_rows, encode_tiles_plain, stitch_tiles_plain
+    )
+
+
+def encode_padded_batch(
+    cols: torch.Tensor, n_valid_chunks: int, group_rows: int = 1 << 19
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """encode_rows_batch of (C, nb*992) columns (a free view in torch)."""
+    C, width = cols.shape
+    if width % BLOCK_INTS:
+        raise ValueError(f"column width must be a multiple of {BLOCK_INTS}, got {width}")
+    return encode_rows_batch(cols.reshape(-1, BLOCK_INTS), C, n_valid_chunks, group_rows)

@@ -14,7 +14,7 @@ import torch
 from ..constants import BIT31, BIT3130, LEN_MASK, ONES31
 from . import bits
 
-__all__ = ["word_counts", "expand_at", "decode_span", "decode"]
+__all__ = ["word_counts", "expand_at", "decode_span", "decode", "decode_batch"]
 
 _I64 = torch.int64
 
@@ -74,3 +74,15 @@ def decode(
         raise ValueError(f"chunk_capacity must be a multiple of 32, got {chunk_capacity}")
     chunks, n_chunks = decode_span(words, m, 0, chunk_capacity)
     return bits.merge_chunks(chunks), n_chunks - n_chunks // 32
+
+
+def decode_batch(
+    words: torch.Tensor, ms, chunk_capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decompress a batch of streams (bitmap-index columns). words (C, M)
+    int32, row c holding stream c as a prefix of ms[c] words. Returns
+    (ints (C, chunk_capacity//32*31), n_ints (C,)), one decode each."""
+    if words.shape[0] == 0:
+        raise ValueError("decode_batch: need at least one column")
+    ints, n_ints = zip(*(decode(w, int(m), chunk_capacity) for w, m in zip(words, ms)))
+    return torch.stack(ints), torch.stack(n_ints)

@@ -29,7 +29,7 @@ from ..constants import (
 from ..convert import to_i32
 from . import bits
 
-__all__ = ["classify", "encode_blocks", "place_rows", "stitch", "encode_padded"]
+__all__ = ["classify", "encode_blocks", "place_rows", "stitch", "encode_padded", "encode_batch"]
 
 _I64 = torch.int64
 
@@ -133,3 +133,17 @@ def encode_padded(
     chunks = bits.repartition_chunks(ints).reshape(nb, BLOCK_CHUNKS)
     staging, counts = encode_blocks(chunks, n_valid_chunks)
     return stitch(staging, counts)
+
+
+def encode_batch(
+    ints: torch.Tensor, n_valid_chunks
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compress a batch of equal-length columns (the bitmap-index
+    workload: one bitmap per indexed value). ints: (C, nb*992) int32, each
+    row a block-aligned column with the same n_valid_chunks. Returns
+    (words (C, nb*1024) zero past each total, totals (C,) int32); the
+    columns are independent, one encode_padded each."""
+    if ints.shape[0] == 0:
+        raise ValueError("encode_batch: need at least one column")
+    words, totals = zip(*(encode_padded(col, n_valid_chunks) for col in ints))
+    return torch.stack(words), torch.stack(totals)
