@@ -5,7 +5,7 @@ device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and no network, and
 imports nothing of JAX or wah_tpu. Phases, one or more lines each:
 
   1. device   the card's name and power limit, as nvidia-smi reports them
-  2. build    nvcc builds kernels K1-K4 and K6 from wah_tpu_torch/csrc/
+  2. build    nvcc builds kernels K1-K6 and T1 from wah_tpu_torch/csrc/
   3. kernels  each kernel against its plain torch version on the card, at
               the main path's shapes (32,768 blocks, the 130 MB protocol),
               and K6 also on the all-zero 130 MB bitmap's staging and on
@@ -14,6 +14,13 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
               with per-row counts) and decode (K3 with per-column valid
               counts, K4 with the mask) against their plain twins at the
               query benchmark's shape: 16 columns x 8,192 blocks, 2^-8
+  3c. fused   K5 (encode_fused) against its plain version and against the
+              K1 + K2 pipeline: the protocol, all-zero, all-one, clustered,
+              one block, an odd block count, a chunk base with a clamped
+              bound, 262,144 blocks (992 MB), and two launches in a row
+  3d. scans   T1's kernel (rows_scan: the kernels' shared block scans and
+              warp search) against torch.cumsum / cummax / searchsorted at
+              (4, 2048) and (32768, 2048), with ties in the search
   4. codec    WahCodec("cuda").compress / .decompress: the bench protocol
               (stream == golden, in full), clustered, all-zero, all-one,
               odd sizes, tiny, empty, and the 992 MB sweep size (stream ==
@@ -26,12 +33,25 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
               rows, 50 values): TPC-H Q6's and Q19's quantity ranges, a
               membership, a NOT and a disjoint AND (K6); every stream ==
               golden, every count == numpy, rows == numpy
-  5. counts   every kernel of each main path (phases 4, 4b, 4c) launched
+  4d. segments  compress_segments / decompress_segments of a bitmap past
+              the int32 position cap: 66 copies of the protocol bitmap
+              (8.58 GB; a plain compress must raise), stream == 66 golden
+              copies, round trip; compress_batch_segments /
+              decompress_batch_segments of BASELINE.json configs[3]'s
+              columns (1 Gbit each, P(bit) = 0.01; BATCH_COLUMNS of its 256),
+              every stream == golden, round trip
+  4e. differential  wah_tpu_torch.differential.run on the card, full matrix
+  4f. cli     python3 -m wah_tpu_torch compress / info / decompress / logical
+              as subprocesses on temporary files, outputs against numpy
+  5. counts   every kernel of each main path (phases 3d, 4, 4b-4e) launched
               in that path's own run
   6. times    CUDA-event milliseconds of each kernel and pipeline against
               the plain versions: the 130 MB protocol, K6 against K2 on
-              two stagings, the query folds; host-clock seconds of the
-              index build and of Q6 through the API
+              two stagings, the query folds; K5 beside the K1 + cumsum +
+              K2 pipeline; T1's kernel beside the torch scans; K2 and K6
+              beside torch.masked_select; each kernel's bound from this
+              run's bytes; host-clock seconds of the index build, of Q6
+              and of the segment paths through the API
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed. The second-to-last line is {"kernels": [...]}, the last
@@ -40,8 +60,12 @@ printed. The second-to-last line is {"kernels": [...]}, the last
 from __future__ import annotations
 
 import json
+import resource
 import subprocess
+import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -53,6 +77,27 @@ QUERY_COLUMNS, QUERY_BLOCKS, QUERY_ANDS = 16, 8192, 8
 # TPC-H SF10 lineitem: 59,986,052 rows, l_quantity uniform in 1..50 (spec clause 4.2.3)
 LINEITEM_ROWS, QUANTITIES = 59_986_052, 50
 
+# the any-size paths: 66 protocol bitmaps (2,162,688 blocks, 8.58 GB, past the
+# 2^31 - 1 chunk cap of one call) in the API's default segments; and the
+# columns of BASELINE.json configs[3] (256 x 1 Gbit, P(bit) = 0.01) in the
+# API's default batch segments, from a pool of distinct columns. 128 of the
+# 256 columns: the API takes and returns host arrays, and 256 columns are
+# 32 GB in, 32 GB out and ~15 GB of streams, more than a 96 GiB host holds
+# beside the temporaries
+SEGMENT_COPIES, SEGMENT_INTS = 66, 992 << 18
+BATCH_COLUMNS, BATCH_COLUMN_INTS, BATCH_SEGMENT_INTS = 128, 31_250_000, 992 << 13
+BATCH_POOL, BATCH_DENSITY = 4, 0.01
+SCAN_ROWS, SCAN_KEYS = 32768, 64  # T1 at full width: 268 MB of int32 rows
+CLI_INTS = 1_000_000  # 4 MB files for the CLI phase
+
+# Published peaks of one H100 SXM: 3.35 TB/s of HBM3, 67 T 32-bit
+# operations a second outside the tensor cores
+PEAK_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12
+# rough instruction counts per element (chunk or word) of each kernel: they
+# only show which of the two bounds is the larger
+OPS_PER_ELEMENT = {"encode_tiles": 60, "stitch_tiles_v2": 4, "prescan_words": 8,
+                   "decode_blocks": 80, "stitch_tiles": 12, "encode_fused": 64, "rows_scan": 40}
+
 # (name, source, TPU kernel replaced)
 KERNELS = [
     ("encode_tiles", "wah_tpu_torch/csrc/encode.cu", "wah_tpu/ops/pallas/encode_kernel.py:323"),
@@ -60,6 +105,8 @@ KERNELS = [
     ("prescan_words", "wah_tpu_torch/csrc/decode.cu", "wah_tpu/ops/pallas/decode_kernel.py:686"),
     ("decode_blocks", "wah_tpu_torch/csrc/decode.cu", "wah_tpu/ops/pallas/decode_kernel.py:470"),
     ("stitch_tiles", "wah_tpu_torch/csrc/stitch_gather.cu", "wah_tpu/ops/pallas/encode_kernel.py:504"),
+    ("encode_fused", "wah_tpu_torch/csrc/encode_fused.cu", "wah_tpu/ops/pallas/encode_kernel.py:713"),
+    ("rows_scan", "wah_tpu_torch/csrc/scan_check.cu", "tests/test_pallas.py:196"),
 ]
 
 
@@ -78,6 +125,21 @@ def sparse_bitmap(n_ints: int, seed: int = SEED, ands: int = 4) -> np.ndarray:
     for _ in range(ands - 1):
         out &= rng.integers(0, 1 << 32, size=n_ints, dtype=np.uint32)
     return out
+
+
+def bernoulli_bitmap(n_ints: int, density: float, seed: int) -> np.ndarray:
+    """P(bit) = density, each bit independent: the set bits' positions are
+    the running sum of geometric gaps (no per-bit random number)."""
+    rng = np.random.default_rng(seed)
+    nbits = n_ints * 32
+    k = int(nbits * density + 8 * (nbits * density) ** 0.5 + 64)
+    pos = np.cumsum(rng.geometric(density, size=k)) - 1
+    if pos[-1] < nbits:
+        raise AssertionError("bernoulli_bitmap: too few gaps drawn")
+    pos = pos[pos < nbits]
+    # the positions are distinct, so the sum of their bit values is their OR
+    words = np.bincount(pos >> 5, weights=(1 << (pos & 31)).astype(np.float64), minlength=n_ints)
+    return words.astype(np.uint32)
 
 
 def mask_bitmap(mask: np.ndarray) -> np.ndarray:
@@ -202,10 +264,11 @@ def run(cuda) -> None:
     from wah_tpu_torch.ops.cuda import _build
     from wah_tpu_torch.ops.cuda import decode_kernel as dk
     from wah_tpu_torch.ops.cuda import encode_kernel as ek
-    from wah_tpu_torch.ops.cuda import stitch2
+    from wah_tpu_torch.ops.cuda import scan_check, stitch2
 
     wrappers = {w.__name__: w for w in (ek.encode_tiles, stitch2.stitch_tiles_v2,
-                                        dk.prescan_words, dk.decode_blocks, ek.stitch_tiles)}
+                                        dk.prescan_words, dk.decode_blocks, ek.stitch_tiles,
+                                        ek.encode_fused, scan_check.rows_scan)}
 
     # 1. device
     card = device_line()
@@ -241,31 +304,79 @@ def run(cuda) -> None:
         errs, proto = phase_kernels(cuda)
     with Phase("3b batch"):
         query = phase_batch(cuda, errs)
+    with Phase("3c fused"):
+        phase_fused(cuda, errs, proto)
+    with Phase("3d scans"):
+        scans = phase_scans(cuda, errs, main_path)
     with Phase("4 codec"):
-        ratio = main_path("codec", list(wrappers)[:4], lambda: phase_codec(cuda, proto["data"]))
+        ratio, proto["golden"] = main_path(
+            "codec", list(wrappers)[:4], lambda: phase_codec(cuda, proto["data"]))
     with Phase("4b queries"):
         phase_queries(cuda, query, main_path)
     with Phase("4c index"):
         index_times = phase_index(cuda, main_path)
+
+    with Phase("4d segments"):
+        segment_times = phase_segments(cuda, proto, main_path)
+    with Phase("4e differential"):
+        phase_differential(cuda, main_path)
+    with Phase("4f cli"):
+        phase_cli()
 
     # 5. launch counts of the main paths
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
     print(f"[5 counts] all main paths: {launches}")
 
     with Phase("6 times"):
-        ms = phase_times(cuda, card, proto, query, index_times)
+        ms, library_ms = phase_times(cuda, card, proto, query, index_times, scans, segment_times)
     print(f"[6 times] compression ratio (words / ints): {ratio}")
+    bounds = kernel_bounds(proto, scans)
+    for name, (bound_ms, by, nbytes) in bounds.items():
+        print(f"[6 times] {name}: bound {bound_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB moved at "
+              f"{PEAK_BYTES_PER_S / 1e12} TB/s), measured {ms[name][0]:.4f} ms = "
+              f"{bound_ms / ms[name][0]:.0%} of the bound's rate, on {card}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": ms[name][0], "plain_ms": ms[name][1]}
+         "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": library_ms.get(name)}
         for name, src, rep in KERNELS
     ]
+    print(f"[7 host] peak resident memory of this process "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def kernel_bounds(proto, scans):
+    """name -> (bound ms, "bytes" or "operations", bytes): the least time the
+    card could take at the shapes timed in phase 6, the larger of this run's
+    bytes (each input read once, each output written once; for the stitches
+    and K5 only the words this data produces) over the memory rate and a
+    rough count of its operations over the 32-bit rate."""
+    p = proto
+    nb, total, rows = PROTOCOL_BLOCKS, p["m"], p["rows"]
+    chunks = nb * 1024
+    x, keys = scans["x"], scans["keys"]
+    work = {  # name: (bytes, elements)
+        "encode_tiles": (nb * 992 * 4 + 12 + chunks * 4 + nb * 4, chunks),
+        "stitch_tiles_v2": (2 * total * 4 + (nb + 1) * 4, total),
+        "stitch_tiles": (2 * total * 4 + (nb + 1) * 4, total),
+        "prescan_words": (2 * p["stream"].numel() * 4 + 2 * rows * 4, p["stream"].numel()),
+        "decode_blocks": (p["stream"].numel() * 4 + rows * 4 + 16 + p["nbo"] * 992 * 4,
+                          p["nbo"] * 1024),
+        "encode_fused": (nb * 992 * 4 + 8 + total * 4 + nb * 4, chunks),
+        "rows_scan": (3 * x.numel() * 4 + 2 * keys.numel() * 4, x.numel()),
+    }
+    out = {}
+    for name, (nbytes, elements) in work.items():
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = elements * OPS_PER_ELEMENT[name] / PEAK_OPS_PER_S * 1e3
+        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+    return out
 
 
 def phase_kernels(cuda):
@@ -351,6 +462,7 @@ def phase_codec(cuda, data):
     n = PROTOCOL_BLOCKS * 992
     codec = WahCodec(cuda)
     ratio = {}
+    golden_proto = golden.encode(data)
 
     def roundtrip(name, x, want=None):
         s, t_enc = codec.compress(x)
@@ -365,7 +477,7 @@ def phase_codec(cuda, data):
         print(f"[4 codec] {name}: {len(x)} ints -> {len(s)} words, round trip ok; "
               f"enc ms h2d/kernel/d2h {t_enc.as_tuple()}, dec {t_dec.as_tuple()}", flush=True)
 
-    roundtrip("protocol_130MB_p2^-4_seed1337", data)
+    roundtrip("protocol_130MB_p2^-4_seed1337", data, want=golden_proto)
     roundtrip("clustered_zipf1.5", clustered_bitmap(2048 * 992, seed=5, a=1.5))
     roundtrip("clustered_zipf1.1", clustered_bitmap(2048 * 992, seed=6, a=1.1))
     roundtrip("all_zeros_130MB", np.zeros(n, np.uint32))
@@ -392,7 +504,7 @@ def phase_codec(cuda, data):
         parts.append(tensor_to_words(w_p[: int(tot_p)]))
     del big_dev
     roundtrip("sweep_992MB_p2^-4", big, want=np.concatenate(parts))
-    return ratio
+    return ratio, golden_proto
 
 
 def phase_batch(cuda, errs):
@@ -529,8 +641,271 @@ def phase_index(cuda, main_path):
     return dict(times=times, idx=idx, q6=queries["q6_quantity_lt_24"][0])
 
 
-def phase_times(cuda, card, proto, query, index_times):
-    """6. CUDA-event ms, kernel against plain; host-clock seconds of the index."""
+def phase_fused(cuda, errs, proto):
+    """3c. K5 against its plain version and against the K1 + K2 pipeline:
+    words[:total], total and counts, tolerance 0."""
+    import torch
+
+    from wah_tpu_torch import golden
+    from wah_tpu_torch.convert import words_to_tensor
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+
+    err = 0
+
+    def check(name, ints, n_valid, base=0, plain=ek.encode_padded_fused_plain):
+        nonlocal err
+        words, total = ek.encode_padded_fused(ints, n_valid, base)
+        t = int(total)
+        ek.check_fused_error()
+        for how, fn in (("plain", plain), ("K1 + K2", lambda *a: ek.encode_padded(*a, stitch="v3"))):
+            w, n = fn(ints, n_valid, base)
+            if int(n) != t:
+                raise AssertionError(f"K5 {name}: total {t} != {how} {int(n)}")
+            err = max(err, exact(f"K5 {name} vs {how}", words[:t], w[:t]))
+        return t
+
+    def check_counts(name, ints, n_valid):
+        nonlocal err
+        ints2d = ints.view(-1, 992)
+        nv = torch.tensor([n_valid, 0], dtype=torch.int32, device=cuda)
+        err = max(err, exact(f"K5 {name} counts", ek.encode_fused(ints2d, nv)[1],
+                             ek.encode_fused_plain(ints2d, nv)[1]))
+        ek.check_fused_error()
+
+    nb = PROTOCOL_BLOCKS
+    nv = golden.chunk_count(nb * 992)
+    sizes = {"protocol": check("protocol", proto["ints"], nv)}
+    if sizes["protocol"] != proto["m"]:
+        raise AssertionError("K5 protocol: total differs from the K1 + K2 phase")
+    check_counts("protocol", proto["ints"], nv)
+    zeros = torch.zeros_like(proto["ints"])
+    ones = torch.full_like(proto["ints"], -1)
+    sizes["all-zero"] = check("all-zero", zeros, nv)
+    sizes["all-one"] = check("all-one", ones, nv)
+    check_counts("all-zero", zeros, nv)
+    for a, seed in ((1.5, 5), (1.1, 6)):
+        x = words_to_tensor(clustered_bitmap(2048 * 992, seed=seed, a=a), cuda)
+        sizes[f"zipf{a}"] = check(f"clustered zipf {a}", x, golden.chunk_count(x.shape[0]))
+    sizes["1 block"] = check("one block", proto["ints"][:992].contiguous(), 1024)
+    odd = nb // 8 + 1
+    sizes[f"{odd} blocks"] = check("odd block count", proto["ints"][: odd * 992].contiguous(),
+                                   odd * 1024 - 500)
+    # a shard in the middle of a longer bitmap: the global bound lies past the
+    # call's blocks and is clamped to them; then a bound inside the call
+    lo, hi = nb // 32, 3 * (nb // 32)
+    shard = proto["ints"][lo * 992 : hi * 992].contiguous()
+    sizes["clamped bound"] = check("chunk base, clamped bound", shard, nv, lo * 1024)
+    sizes["bound inside"] = check("chunk base, bound inside", shard, (hi - lo // 2) * 1024 + 77, lo * 1024)
+
+    # two launches in a row on different inputs, nothing read between them
+    w1, t1 = ek.encode_padded_fused(proto["ints"], nv)
+    w2, t2 = ek.encode_padded_fused(zeros, nv)
+    ek.check_fused_error()
+    p1, n1 = ek.encode_padded_fused_plain(proto["ints"], nv)
+    if int(t1) != int(n1) or int(t2) != nb:
+        raise AssertionError(f"K5 twice in a row: totals {int(t1)}, {int(t2)}")
+    err = max(err, exact("K5 twice in a row, first", w1[: int(t1)], p1[: int(t1)]))
+    if not bool((w2[:nb] == -(2**31) + 1024).all()):  # BIT31 | 1024 as int32
+        raise AssertionError("K5 twice in a row: the second stream is wrong")
+    del w1, w2, p1, zeros, ones
+
+    # the sweep's largest size, made on the card (P(bit) = 2^-4); the plain
+    # encode goes one protocol-sized piece at a time
+    big_nb = SWEEP_MAX_BLOCKS
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+    big = torch.randint(-2**31, 2**31, (big_nb * 992,), generator=gen, dtype=torch.int32, device=cuda)
+    for _ in range(3):
+        big &= torch.randint(-2**31, 2**31, big.shape, generator=gen, dtype=torch.int32, device=cuda)
+
+    def plain_in_pieces(ints, n_valid, base):
+        parts, total = [], 0
+        for lo in range(0, ints.shape[0], nb * 992):
+            w, t = ek.encode_padded_fused_plain(ints[lo : lo + nb * 992], n_valid,
+                                                base + lo // 992 * 1024)
+            parts.append(w[: int(t)])
+            total += int(t)
+        out = torch.cat(parts)
+        return out, torch.tensor(total)
+
+    sizes[f"{big_nb} blocks"] = check("992 MB", big, golden.chunk_count(big.shape[0]),
+                                      plain=plain_in_pieces)
+    errs["encode_fused"] = err
+    print(f"[3c fused] K5 == plain and == K1 + K2, words[:total], total and counts bit-exact; "
+          f"two launches in a row ok; stream words {sizes}", flush=True)
+
+
+def phase_scans(cuda, errs, main_path):
+    """3d. T1's kernel against its plain version (torch.cumsum / cummax /
+    searchsorted). The full-width call is its main path and is counted."""
+    import torch
+
+    from wah_tpu_torch.ops.cuda import scan_check
+
+    def case(rows, high, q, seed):
+        rng = np.random.default_rng(seed)
+        x = rng.integers(0, high, size=(rows, 2048), dtype=np.int32)
+        csum = np.cumsum(x, axis=1)
+        keys = rng.integers(csum[:, :1], csum[:, -1:] + 50, size=(rows, q))
+        # a third of the keys are sums of the row itself: exact ties
+        picks = np.take_along_axis(csum, rng.integers(0, 2048, (rows, q)), 1)
+        keys[:, ::3] = picks[:, ::3]
+        return torch.from_numpy(x).to(cuda), torch.from_numpy(keys.astype(np.int32)).to(cuda)
+
+    def compare(name, got, x, keys):
+        want = scan_check.rows_scan_plain(x, keys)
+        return max(exact(f"T1 {name} {what}", g, w)
+                   for g, w, what in zip(got, want, ("cumsum", "cummax", "search")))
+
+    x, keys = case(SCAN_ROWS, 100, SCAN_KEYS, 17)
+    got = main_path("scan_check", ["rows_scan"], lambda: scan_check.rows_scan(x, keys))
+    err = compare("full width", got, x, keys)
+    small = case(4, 100, SCAN_KEYS, 17)  # the TPU test's shape and seed
+    err = max(err, compare("(4, 2048)", scan_check.rows_scan(*small), *small))
+    ties = case(SCAN_ROWS // 8, 2, SCAN_KEYS, 18)  # half the steps add 0: long ties
+    err = max(err, compare("ties", scan_check.rows_scan(*ties), *ties))
+    errs["rows_scan"] = err
+    print(f"[3d scans] rows_scan == torch.cumsum / cummax / searchsorted at (4, 2048), "
+          f"({SCAN_ROWS}, 2048) with {SCAN_KEYS} keys a row, and ({SCAN_ROWS // 8}, 2048) of 0/1 "
+          f"steps (ties): bit-exact", flush=True)
+    return dict(x=x, keys=keys)
+
+
+def phase_segments(cuda, proto, main_path):
+    """4d. The any-size paths through the API, at full width."""
+    from wah_tpu_torch import WahCodec, api, golden
+
+    codec = WahCodec(cuda)
+    times = {}
+    four = ["encode_tiles", "stitch_tiles_v2", "prescan_words", "decode_blocks"]
+
+    # one bitmap past the int32 position cap
+    data, g = proto["data"], proto["golden"]
+    bitmap = np.tile(data, SEGMENT_COPIES)
+    n = bitmap.shape[0]
+    if golden.chunk_count(n) <= 2**31 - 1 or n <= api.MAX_INTS_PER_BITMAP:
+        raise AssertionError("the segmented bitmap must lie past the int32 position cap")
+    try:
+        codec.compress(bitmap)
+    except ValueError as e:
+        print(f"[4d segments] a plain compress of {n} ints raises: {e}", flush=True)
+    else:
+        raise AssertionError("compress past the position cap must raise")
+
+    def single():
+        t0 = time.perf_counter()
+        stream = codec.compress_segments(bitmap, segment_ints=SEGMENT_INTS)
+        times["compress_segments_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = codec.decompress_segments(stream, n, segment_ints=SEGMENT_INTS)
+        times["decompress_segments_s"] = time.perf_counter() - t0
+        return stream, back
+
+    stream, back = main_path("segments", four, single)
+    if stream.shape[0] != SEGMENT_COPIES * g.shape[0]:
+        raise AssertionError(f"segments: {stream.shape[0]} words, want {SEGMENT_COPIES} x {g.shape[0]}")
+    for i in range(SEGMENT_COPIES):
+        same_stream(f"segments copy {i}", stream[i * len(g) : (i + 1) * len(g)], g)
+        if not np.array_equal(back[i * len(data) : (i + 1) * len(data)], data):
+            raise AssertionError(f"segments: copy {i} does not round-trip")
+    times["segments_bytes"] = bitmap.nbytes
+    n_segs = -(-n // SEGMENT_INTS)
+    print(f"[4d segments] {n} ints ({bitmap.nbytes / 1e9:.2f} GB, {golden.chunk_count(n)} chunks) in "
+          f"{n_segs} segments -> {stream.shape[0]} words == {SEGMENT_COPIES} golden copies; round trip ok; "
+          f"compress {times['compress_segments_s']:.2f} s, decompress "
+          f"{times['decompress_segments_s']:.2f} s", flush=True)
+    del bitmap, stream, back
+
+    # batched columns, each longer than one batched call takes
+    pool = [bernoulli_bitmap(BATCH_COLUMN_INTS, BATCH_DENSITY, SEED + i) for i in range(BATCH_POOL)]
+    want = [golden.encode(c) for c in pool]
+    cols = np.stack([pool[c % BATCH_POOL] for c in range(BATCH_COLUMNS)])
+
+    def batch():
+        t0 = time.perf_counter()
+        streams = codec.compress_batch_segments(cols, segment_ints=BATCH_SEGMENT_INTS)
+        times["compress_batch_segments_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = codec.decompress_batch_segments(streams, cols.shape[1], segment_ints=BATCH_SEGMENT_INTS)
+        times["decompress_batch_segments_s"] = time.perf_counter() - t0
+        return streams, out
+
+    streams, out = main_path("batch_segments", four, batch)
+    for c in range(BATCH_COLUMNS):
+        same_stream(f"batch segments column {c}", streams[c], want[c % BATCH_POOL])
+        if not np.array_equal(out[c], pool[c % BATCH_POOL]):
+            raise AssertionError(f"batch segments: column {c} does not round-trip")
+    times["batch_bytes"] = cols.nbytes
+    bits = sum(int(np.unpackbits(c[:100_000].view(np.uint8)).sum()) for c in pool)
+    print(f"[4d segments] {BATCH_COLUMNS} columns (of BASELINE.json configs[3]'s 256; {BATCH_POOL} "
+          f"distinct) x {BATCH_COLUMN_INTS} ints ({cols.nbytes / 1e9:.2f} GB, P(bit) measured "
+          f"{bits / (BATCH_POOL * 3.2e6):.4f}) in {-(-BATCH_COLUMN_INTS // BATCH_SEGMENT_INTS)} segments "
+          f"a column: every stream == golden ({[len(w) for w in want]} words), round trip ok; "
+          f"compress {times['compress_batch_segments_s']:.2f} s, decompress "
+          f"{times['decompress_batch_segments_s']:.2f} s", flush=True)
+    return times
+
+
+def phase_differential(cuda, main_path):
+    """4e. The differential's full matrix on the card; K5 runs on every case."""
+    from wah_tpu_torch import differential
+
+    report = main_path("differential", ["encode_tiles", "stitch_tiles_v2", "prescan_words",
+                                        "decode_blocks", "encode_fused"],
+                       lambda: differential.run(cuda))
+    print(f"[4e differential] {differential.summary_line(report)}", flush=True)
+    if report["summary"]["failed"] or report["summary"]["total_cases"] != 25:
+        raise AssertionError(f"differential: {report['summary']}")
+
+
+def run_all(commands, cwd, timeout=300):
+    """Run the commands side by side; raise if one fails; leave none running."""
+    procs = [subprocess.Popen(c, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, out in zip(commands, procs, outs):
+        if p.returncode:
+            raise AssertionError(f"{' '.join(map(str, c[2:]))}: exit {p.returncode}\n{out}")
+    return outs
+
+
+def phase_cli():
+    """4f. The file CLI as a user calls it (default device: the card)."""
+    root = Path(__file__).resolve().parent
+    cli = [sys.executable, "-m", "wah_tpu_torch"]
+    odd = sparse_bitmap(CLI_INTS, seed=SEED).astype("<u4").tobytes()[:-3]  # no multiple of 4 bytes
+    cols = [sparse_bitmap(CLI_INTS, seed=SEED + 1 + i, ands=a) for i, a in enumerate((8, 2, 12))]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "c0.bin").write_bytes(odd)
+        for i, c in enumerate(cols):
+            (tmp / f"d{i}.bin").write_bytes(c.astype("<u4").tobytes())
+        wahs = [str(tmp / f"d{i}.bin.wah") for i in range(3)]
+        run_all([[*cli, "compress", str(tmp / f"{f}.bin")] for f in ("c0", "d0", "d1", "d2")], root)
+        # a 3-way OR of equal-length files, in the compressed domain
+        info, _, _ = run_all([[*cli, "info", str(tmp / "c0.bin.wah")],
+                              [*cli, "decompress", str(tmp / "c0.bin.wah"), "-o", str(tmp / "c0.out")],
+                              [*cli, "logical", "or", *wahs, "-o", str(tmp / "or.wah")]], root)
+        if (tmp / "c0.out").read_bytes() != odd:
+            raise AssertionError("cli: compress -> decompress differs from the input file")
+        run_all([[*cli, "decompress", str(tmp / "or.wah"), "-o", str(tmp / "or.bin")]], root)
+        got = np.fromfile(tmp / "or.bin", dtype="<u4")
+        if not np.array_equal(got, cols[0] | cols[1] | cols[2]):
+            raise AssertionError("cli: logical or differs from numpy")
+    print(f"[4f cli] compress, info, decompress ({len(odd)} B file) and a 3-way logical or "
+          f"({CLI_INTS * 4} B files) as subprocesses on the default device: files == numpy; "
+          f"{info.strip()}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_times(cuda, card, proto, query, index_times, scans, segment_times):
+    """6. CUDA-event ms, kernel against plain and against the one PyTorch call
+    for the same function; host-clock seconds of the index and the segments."""
     import torch
 
     from wah_tpu_torch import golden
@@ -538,10 +913,12 @@ def phase_times(cuda, card, proto, query, index_times):
     from wah_tpu_torch.ops import logical
     from wah_tpu_torch.ops.cuda import decode_kernel as dk
     from wah_tpu_torch.ops.cuda import encode_kernel as ek
-    from wah_tpu_torch.ops.cuda import stitch2
+    from wah_tpu_torch.ops.cuda import scan_check, stitch2
 
     p = proto
     n = PROTOCOL_BLOCKS * 992
+    nv2 = p["nv"][:2].contiguous()
+    sx, sk = scans["x"], scans["keys"]
     timed = {
         "encode_tiles": (lambda: ek.encode_tiles(p["ints2d"], p["nv"]),
                          lambda: ek.encode_tiles_plain(p["ints2d"], p["nv"])),
@@ -553,6 +930,10 @@ def phase_times(cuda, card, proto, query, index_times):
                           lambda: dk.decode_blocks_plain(p["words_t"], p["g_base"], p["meta"], p["nbo"])),
         "stitch_tiles": (lambda: ek.stitch_tiles(p["staging"], p["offsets_ext"]),
                          lambda: stitch2.stitch_tiles_plain(p["staging"], p["offsets_ext"])),
+        "encode_fused": (lambda: ek.encode_fused(p["ints2d"], nv2),
+                         lambda: ek.encode_fused_plain(p["ints2d"], nv2)),
+        "rows_scan": (lambda: scan_check.rows_scan(sx, sk),
+                      lambda: scan_check.rows_scan_plain(sx, sk)),
         "encode pipeline": (lambda: ek.encode_padded(p["ints"], golden.chunk_count(n), stitch="v3"),
                             lambda: ek.encode_padded_plain(p["ints"], golden.chunk_count(n), stitch="v3")),
         "decode pipeline": (lambda: dk.decode(p["stream"], p["m"], p["nbo"] * 1024),
@@ -571,7 +952,49 @@ def phase_times(cuda, card, proto, query, index_times):
               f"(kernel {gb / ms[name][0] * 1e3:.2f} GB/s of {what}) on {card}", flush=True)
 
     for name, (kernel_fn, plain_fn) in timed.items():
-        measure(name, kernel_fn, plain_fn, p["data"].nbytes / 1e9, "bitmap")
+        gb, what = (sx.numel() * 4 / 1e9, "int32 rows") if name == "rows_scan" else (
+            p["data"].nbytes / 1e9, "bitmap")
+        measure(name, kernel_fn, plain_fn, gb, what)
+    ek.check_fused_error()
+    print(f"[6 times] K5 encode_fused {ms['encode_fused'][0]:.4f} ms beside the K1 + cumsum + K2 "
+          f"pipeline {ms['encode pipeline'][0]:.4f} ms (K1 {ms['encode_tiles'][0]:.4f} + K2 "
+          f"{ms['stitch_tiles_v2'][0]:.4f}) on {card}", flush=True)
+
+    # the one PyTorch call that computes a kernel's function, timed beside it
+    # and used nowhere in the port: for both stitches torch.masked_select of
+    # the staging rows' prefixes (its mask made outside the timing); for T1
+    # torch.cumsum and torch.cummax (searchsorted timed beside them)
+    library_ms = {}
+    counts = (p["offsets_ext"][1:] - p["offsets_ext"][:-1])[:, None]
+    mask = torch.arange(1024, device=cuda)[None, :] < counts
+    if not torch.equal(torch.masked_select(p["staging"], mask), p["stream"][: p["m"]]):
+        raise AssertionError("masked_select does not compute the stitch")
+    sel = min(cuda_ms(lambda: torch.masked_select(p["staging"], mask), 10) for _ in range(2))
+    library_ms["stitch_tiles_v2"] = library_ms["stitch_tiles"] = sel
+    csum = torch.cumsum(sx, 1, dtype=torch.int32)
+    scan_ms = {
+        "cumsum": min(cuda_ms(lambda: torch.cumsum(sx, 1, dtype=torch.int32), 10) for _ in range(2)),
+        "cummax": min(cuda_ms(lambda: torch.cummax(sx, 1), 10) for _ in range(2)),
+        "searchsorted": min(cuda_ms(lambda: torch.searchsorted(csum, sk, right=True), 10)
+                            for _ in range(2)),
+    }
+    library_ms["rows_scan"] = scan_ms["cumsum"] + scan_ms["cummax"]
+    print(f"[6 times] library calls: torch.masked_select for K2 / K6 {sel:.4f} ms (K2 "
+          f"{ms['stitch_tiles_v2'][0]:.4f}, K6 {ms['stitch_tiles'][0]:.4f}); for T1 torch.cumsum "
+          f"{scan_ms['cumsum']:.4f} + torch.cummax {scan_ms['cummax']:.4f} ms, searchsorted "
+          f"{scan_ms['searchsorted']:.4f} ms (kernel, all three: {ms['rows_scan'][0]:.4f}) on {card}",
+          flush=True)
+    del mask, csum
+
+    st = segment_times
+    print(f"[6 times] segments through the API (host clock): compress_segments "
+          f"{st['compress_segments_s']:.3f} s ({st['segments_bytes'] / st['compress_segments_s'] / 1e9:.3f} "
+          f"GB/s of bitmap), decompress_segments {st['decompress_segments_s']:.3f} s "
+          f"({st['segments_bytes'] / st['decompress_segments_s'] / 1e9:.3f} GB/s); "
+          f"compress_batch_segments {st['compress_batch_segments_s']:.3f} s "
+          f"({st['batch_bytes'] / st['compress_batch_segments_s'] / 1e9:.3f} GB/s), "
+          f"decompress_batch_segments {st['decompress_batch_segments_s']:.3f} s "
+          f"({st['batch_bytes'] / st['decompress_batch_segments_s'] / 1e9:.3f} GB/s) on {card}", flush=True)
     # K6 against K2 on the same staging: the protocol's (2^-4, dense), the
     # all-zero bitmap's, and 130 MB stagings at the densities between, where
     # the "auto" stitch chooses (K6 iff total <= 3/8 of capacity)
@@ -633,7 +1056,7 @@ def phase_times(cuda, card, proto, query, index_times):
           f"pipeline {q6_dev:.4f} ms; other queries "
           f"{ {k: round(v, 4) for k, v in t.items() if k not in ('build_s', 'q6_quantity_lt_24')} } s "
           f"on {card}", flush=True)
-    return ms
+    return ms, library_ms
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
-"""On-card tests of the CUDA kernels K1-K4 and K6 (marker `cuda`).
+"""On-card tests of the CUDA kernels K1-K6 and T1 (marker `cuda`).
 
 Each kernel against its plain torch version on the same CUDA tensors, and
 WahCodec("cuda") against the golden model, on small edge cases that
 chip_smoke.py does not reach: partial and shard-offset validity, the
 long-fill and granule-window-extreme streams, a decoded span; K6's
 offset ties, exact-tile, full and one-word totals; batched columns with a
-capacity-filling column and garbage tails; the logical pipeline.
+capacity-filling column and garbage tails; the logical pipeline; K5
+against its plain version, the K1 + K2 pipeline and golden, twice in a
+row on different inputs; T1's kernel with ties and odd search spans; the
+segment paths and the differential's quick matrix.
 Tolerance is zero (an integer codec). They skip without a CUDA device.
 The card's machine has no JAX, so run them there without the JAX
 conftest:
@@ -22,7 +25,7 @@ from wah_tpu_torch.convert import tensor_to_words, words_to_tensor
 from wah_tpu_torch.ops.cuda import decode_kernel as dk
 from wah_tpu_torch.ops.cuda import encode_kernel as ek
 from wah_tpu_torch.ops import logical
-from wah_tpu_torch.ops.cuda import stitch2
+from wah_tpu_torch.ops.cuda import scan_check, stitch2
 
 pytestmark = pytest.mark.cuda
 
@@ -285,3 +288,120 @@ def test_index_on_cuda_matches_numpy(cuda):
     before = ek.stitch_tiles.launches
     empty = idx.codec.logical(idx.column(0), idx.column(1), "and", idx.n_ints)
     assert ek.stitch_tiles.launches == before + 1 and idx.count(empty) == 0
+
+
+def _padded(data: np.ndarray, extra_blocks: int = 0):
+    nv = golden.chunk_count(len(data))
+    nb = -(-nv // BLOCK_CHUNKS) + extra_blocks
+    padded = np.zeros(nb * BLOCK_INTS, np.uint32)
+    padded[: len(data)] = data
+    return padded, nv
+
+
+@pytest.mark.parametrize("name", BITMAPS)
+def test_encode_fused_matches_plain_pipeline_and_golden(cuda, name):
+    data = BITMAPS[name]()
+    padded, nv = _padded(data)
+    ints = words_to_tensor(padded, cuda)
+    before = ek.encode_fused.launches
+    words, total = ek.encode_padded_fused(ints, nv)
+    assert ek.encode_fused.launches == before + 1 and total.device.type == "cuda"
+    words_p, total_p = ek.encode_padded_fused_plain(ints, nv)
+    words_2, total_2 = ek.encode_padded(ints, nv, stitch="v3")
+    t = int(total)
+    ek.check_fused_error()
+    assert t == int(total_p) == int(total_2)
+    assert torch.equal(words[:t], words_p[:t]) and torch.equal(words[:t], words_2[:t])
+    np.testing.assert_array_equal(tensor_to_words(words[:t]), golden.encode(data))
+    nv_t = torch.tensor([nv, 0], dtype=torch.int32, device=cuda)
+    _, counts = ek.encode_fused(ints.view(-1, BLOCK_INTS), nv_t)
+    assert torch.equal(counts, ek.encode_fused_plain(ints.view(-1, BLOCK_INTS), nv_t)[1])
+
+
+def test_encode_fused_twice_in_a_row_on_different_inputs(cuda):
+    """A launch must not pass on what an earlier one left in its workspace."""
+    a, nva = _padded(_bitmap(3000 * BLOCK_INTS, 1 / 16, 31))
+    b, nvb = _padded(_bitmap(3000 * BLOCK_INTS, 1 / 256, 32))
+    ta, tb = words_to_tensor(a, cuda), words_to_tensor(b, cuda)
+    wa, na = ek.encode_padded_fused(ta, nva)
+    wb, nb_ = ek.encode_padded_fused(tb, nvb)  # enqueued before anything is read
+    ek.check_fused_error()
+    for (w, n), (x, nv) in (((wa, na), (ta, nva)), ((wb, nb_), (tb, nvb))):
+        w_p, n_p = ek.encode_padded_fused_plain(x, nv)
+        assert int(n) == int(n_p) and torch.equal(w[: int(n)], w_p[: int(n)])
+    assert int(na) != int(nb_)
+
+
+def test_encode_fused_shard_padding_emits_no_spurious_words(cuda):
+    """A non-final shard's padding rows lie below the global bound: the clamp
+    to the call's own blocks keeps them from emitting BIT31|1024 words."""
+    nb = 4
+    data = words_to_tensor(np.zeros(nb * BLOCK_INTS, np.uint32), cuda)
+    for base in (0, nb * BLOCK_CHUNKS):
+        words, total = ek.encode_padded_fused(data, 8 * nb * BLOCK_CHUNKS, base)
+        assert int(total) == nb
+        np.testing.assert_array_equal(
+            tensor_to_words(words[:nb]), np.full(nb, 0x80000000 | 1024, np.uint32))
+    # a bound inside the call: the blocks past it emit nothing
+    words, total = ek.encode_padded_fused(data, 2 * BLOCK_CHUNKS + 5, 0)
+    assert int(total) == 3 and tensor_to_words(words[:3]).tolist() == [
+        0x80000000 | 1024, 0x80000000 | 1024, 0x80000000 | 5]
+    ek.check_fused_error()
+
+
+SCANS = {
+    # name: (rows, low, high, keys per row, search span)
+    "t1_shape_seed17": (4, 0, 100, 64, (0, 2048)),
+    "ties": (8, 0, 2, 100, (0, 2048)),  # half the steps add 0: long ties in the cumsum
+    "all_zero": (2, 0, 1, 40, (0, 2048)),  # every key ties with every entry
+    "odd_span": (8, 0, 100, 70, (5, 1902)),  # hi - lo = 1897, not a multiple of 32
+    "span_of_one": (2, 0, 100, 33, (77, 78)),
+    "negative_maxima": (4, -50, -10, 0, (0, 2048)),  # cummax below zero; no search
+    "many_rows": (3000, 0, 100, 5, (0, 2048)),
+}
+
+
+@pytest.mark.parametrize("name", SCANS)
+def test_rows_scan_matches_plain(cuda, name):
+    rows, low, high, q, (lo, hi) = SCANS[name]
+    rng = np.random.default_rng(17)
+    x = rng.integers(low, high, size=(rows, 2048), dtype=np.int32)
+    csum = np.cumsum(x, axis=1)
+    # keys from a[lo] (the contract's floor) to past the row's last sum, and
+    # the sums themselves, which tie exactly
+    keys = rng.integers(csum[:, lo : lo + 1], csum[:, hi - 1 : hi] + 50, size=(rows, q))
+    keys[:, ::3] = np.take_along_axis(csum[:, lo:hi], rng.integers(0, hi - lo, (rows, q)), 1)[:, ::3]
+    xt = torch.from_numpy(x).to(cuda)
+    kt = torch.from_numpy(keys.astype(np.int32)).to(cuda)
+    before = scan_check.rows_scan.launches
+    got = scan_check.rows_scan(xt, kt, lo, hi)
+    assert scan_check.rows_scan.launches == before + 1
+    want = scan_check.rows_scan_plain(xt, kt, lo, hi)
+    for g, w, what in zip(got, want, ("cumsum", "cummax", "search")):
+        assert torch.equal(g, w), what
+    np.testing.assert_array_equal(got[0].cpu().numpy(), csum)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), np.maximum.accumulate(x, axis=1))
+
+
+def test_segments_on_cuda_match_golden(cuda):
+    codec = WahCodec(cuda)
+    data = _bitmap(7 * BLOCK_INTS + 123, 1 / 64, 61)
+    stream = codec.compress_segments(data, segment_ints=2 * BLOCK_INTS)
+    np.testing.assert_array_equal(stream, golden.encode(data))
+    np.testing.assert_array_equal(
+        codec.decompress_segments(stream, len(data), segment_ints=2 * BLOCK_INTS), data)
+    cols = _batch_columns(5 * BLOCK_INTS + 77)
+    streams = codec.compress_batch_segments(cols, segment_ints=2 * BLOCK_INTS)
+    for c, s in enumerate(streams):
+        np.testing.assert_array_equal(s, golden.encode(cols[c]))
+    np.testing.assert_array_equal(
+        codec.decompress_batch_segments(streams, cols.shape[1], segment_ints=2 * BLOCK_INTS), cols)
+
+
+def test_differential_quick_on_cuda(cuda):
+    from wah_tpu_torch import differential
+
+    before = ek.encode_fused.launches
+    report = differential.run(cuda, quick=True)
+    assert report["summary"]["failed"] == 0 and report["card"]
+    assert ek.encode_fused.launches == before + 6

@@ -2,7 +2,9 @@
 entry points compress() / decompress() (reference: compress.h:12-18,
 decompress.h:11-17) with their three phase timings per direction, the
 batched columns of a bitmap index (compress_batch / decompress_batch),
-and the compressed-domain logical ops (logical / logical_many).
+bitmaps and columns of any size as block-aligned segments
+(compress_segments / decompress_segments and their _batch_ forms), and
+the compressed-domain logical ops (logical / logical_many).
 
 numpy uint32 in, numpy uint32 out, as in wah_tpu. On a CUDA device the
 kernels K1-K4 and K6 run (ops/cuda); on the CPU their plain versions.
@@ -48,6 +50,17 @@ def _check_size(n: int) -> None:
             f"bitmap of {n} ints exceeds the 2^31-1 chunk (~8.3 GB) "
             "int32 position limit; split into columns or segments"
         )
+
+
+# _segment_edges walks a stream in pieces of this many words (its int64
+# temporaries are 8 B a word)
+_EDGE_PIECE = 1 << 24
+
+
+def _check_segment_ints(segment_ints: int) -> None:
+    if segment_ints <= 0 or segment_ints % BLOCK_INTS:
+        raise ValueError(f"segment_ints must be a positive multiple of {BLOCK_INTS}, got {segment_ints}")
+    _check_size(segment_ints)
 
 
 def validate_stream(words: np.ndarray) -> None:
@@ -210,6 +223,123 @@ class WahCodec:
             ])
         if out_ints is not None:
             out = out[:, :out_ints]
+        return out
+
+    # -- bitmaps of any size, as block-aligned segments ---------------------
+    def compress_segments(
+        self, data: np.ndarray, segment_ints: int = BLOCK_INTS << 18
+    ) -> np.ndarray:
+        """Compress a bitmap of any size as block-aligned segments.
+
+        The int32 chunk positions cap one compress() call at ~8.3 GB
+        (_check_size). Segments that are multiples of 992 ints start at
+        1024-chunk block boundaries, and fill runs never cross those
+        (SURVEY.md section 0.1), so the concatenated per-segment streams
+        are the whole bitmap's stream, equal to a single golden encode.
+        """
+        data = np.ascontiguousarray(data, dtype=np.uint32)
+        _check_segment_ints(segment_ints)
+        if data.shape[0] <= segment_ints:
+            return self.compress(data)[0]
+        return np.concatenate([
+            self.compress(data[i : i + segment_ints])[0]
+            for i in range(0, data.shape[0], segment_ints)
+        ])
+
+    def decompress_segments(
+        self, words: np.ndarray, out_ints: int, segment_ints: int = BLOCK_INTS << 18
+    ) -> np.ndarray:
+        """Inverse of compress_segments for streams of any size: split the
+        stream at the words that end each segment (exact: segment edges
+        are block edges, so no fill crosses them), decode each segment on
+        its own, concatenate. Each segment is validated as it is decoded."""
+        words = np.ascontiguousarray(words, dtype=np.uint32)
+        _check_segment_ints(segment_ints)
+        if out_ints <= segment_ints:
+            return self.decompress(words, out_ints=out_ints)[0]
+        bounds = self._segment_edges(words, out_ints, segment_ints)
+        out = np.empty(out_ints, np.uint32)
+        for s in range(len(bounds) - 1):
+            lo = s * segment_ints
+            ni = min(segment_ints, out_ints - lo)
+            out[lo : lo + ni] = self.decompress(words[bounds[s] : bounds[s + 1]], out_ints=ni)[0]
+        return out
+
+    def compress_batch_segments(
+        self, data: np.ndarray, segment_ints: int = BLOCK_INTS << 13
+    ) -> list[np.ndarray]:
+        """Batched columns of any length: (C, n) -> C per-column streams,
+        each equal to compress_segments / the golden model of that column
+        (BASELINE.json configs[3] is 256 columns x 1 Gbit, past the
+        position cap of one batched call). Each segment is one
+        compress_batch over all C columns."""
+        data = np.ascontiguousarray(data, dtype=np.uint32)
+        _check_segment_ints(segment_ints)
+        C, n = data.shape
+        parts: list[list[np.ndarray]] = [[] for _ in range(C)]
+        for lo in range(0, max(n, 1), segment_ints):
+            words, totals = self.compress_batch(data[:, lo : lo + segment_ints])
+            for c in range(C):
+                parts[c].append(words[c, : totals[c]])
+        return [np.concatenate(p) for p in parts]
+
+    @staticmethod
+    def _segment_edges(words: np.ndarray, out_ints: int, segment_ints: int) -> list[int]:
+        """Word boundaries that split a stream at block-aligned segment
+        edges (exact: no fill crosses them): [0, end of segment 0, ...,
+        len(words)]. Shared by the single-stream and batched decoders.
+
+        wah_tpu builds an int64 chunk count and its cumsum over the whole
+        stream; here the stream is walked in pieces with a running carry,
+        which finds the same edges in bounded memory."""
+        seg_chunks = (segment_ints // BLOCK_INTS) * BLOCK_CHUNKS
+        n_segs = -(-out_ints // segment_ints)
+        edges_c = np.arange(1, n_segs, dtype=np.int64) * seg_chunks
+        edges_w = np.empty(n_segs - 1, np.int64)
+        carry = found = 0
+        for lo in range(0, words.shape[0], _EDGE_PIECE):
+            piece = words[lo : lo + _EDGE_PIECE]
+            is_fill = (piece & np.uint32(BIT31)) != 0
+            ccum = np.cumsum(np.where(is_fill, piece & np.uint32(LEN_MASK), 1), dtype=np.int64)
+            ccum += carry
+            carry = int(ccum[-1])
+            upto = int(np.searchsorted(edges_c, carry, side="right"))
+            at = np.searchsorted(ccum, edges_c[found:upto], side="left")
+            if not np.array_equal(ccum[at], edges_c[found:upto]):
+                break
+            edges_w[found:upto] = lo + at + 1
+            found = upto
+        if found != n_segs - 1:
+            raise ValueError(
+                "stream does not split at block-aligned segment edges "
+                "(wrong segment_ints, or not a WAH stream)"
+            )
+        return [0, *edges_w.tolist(), words.shape[0]]
+
+    def decompress_batch_segments(
+        self, streams: list[np.ndarray], out_ints: int, segment_ints: int = BLOCK_INTS << 13
+    ) -> np.ndarray:
+        """Inverse of compress_batch_segments: C per-column streams ->
+        (C, out_ints) bitmaps, segment by segment (each segment is one
+        decompress_batch; its columns expand equally because they share
+        the segment length)."""
+        _check_segment_ints(segment_ints)
+        streams = [np.ascontiguousarray(s, dtype=np.uint32) for s in streams]
+        C = len(streams)
+        if out_ints <= segment_ints:
+            bounds = [[0, len(s)] for s in streams]
+        else:
+            bounds = [self._segment_edges(s, out_ints, segment_ints) for s in streams]
+        out = np.empty((C, out_ints), np.uint32)
+        for s in range(len(bounds[0]) - 1):
+            segs = [streams[c][bounds[c][s] : bounds[c][s + 1]] for c in range(C)]
+            totals = np.array([len(x) for x in segs], np.int64)
+            w2 = np.zeros((C, int(totals.max())), np.uint32)
+            for c, x in enumerate(segs):
+                w2[c, : len(x)] = x
+            lo = s * segment_ints
+            ni = min(segment_ints, out_ints - lo)
+            out[:, lo : lo + ni] = self.decompress_batch(w2, totals, out_ints=ni)
         return out
 
     # -- compressed-domain logical ops (bitmap-index queries) --------------

@@ -1,5 +1,5 @@
 // Shared definitions of the WAH kernels: format constants (copied from
-// wah_tpu_torch/constants.py) and warp / block scans.
+// wah_tpu_torch/constants.py), warp / block scans and the warp search.
 #pragma once
 
 #include <cstdint>
@@ -26,6 +26,17 @@ __device__ __forceinline__ int warp_inclusive_scan(int x) {
   for (int d = 1; d < 32; d <<= 1) {
     const int y = __shfl_up_sync(kFullMask, x, d);
     if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// Inclusive prefix maximum across the 32 lanes of a warp.
+__device__ __forceinline__ int warp_inclusive_max(int x) {
+  const int lane = lane_id();
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, x, d);
+    if (lane >= d) x = max(x, y);
   }
   return x;
 }
@@ -66,6 +77,24 @@ __device__ __forceinline__ int block_exclusive_scan_1024(int x, int* buf, int* t
   __syncthreads();
   *total = buf[32];
   return buf[warp] + incl - x;
+}
+
+// Inclusive prefix maximum over a block of exactly 1024 threads (32 warps).
+// `buf` is 33 ints of shared memory, free for this call; *total gets the
+// block's maximum. Contains two __syncthreads(): every thread must call it.
+__device__ __forceinline__ int block_inclusive_max_1024(int x, int* buf, int* total) {
+  const int lane = lane_id(), warp = threadIdx.x >> 5;
+  const int incl = warp_inclusive_max(x);
+  if (lane == 31) buf[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int mi = warp_inclusive_max(buf[lane]);
+    buf[lane] = mi;
+    if (lane == 31) buf[32] = mi;
+  }
+  __syncthreads();
+  *total = buf[32];
+  return warp == 0 ? incl : max(buf[warp - 1], incl);
 }
 
 }  // namespace wah

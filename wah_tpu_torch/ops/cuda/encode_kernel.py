@@ -1,5 +1,5 @@
-"""K1 block encoder and K6 gather stitch — counterpart of
-wah_tpu/ops/pallas/encode_kernel.py.
+"""K1 block encoder, K6 gather stitch and K5 fused encode — counterpart
+of wah_tpu/ops/pallas/encode_kernel.py.
 
 `encode_tiles` (K1) encodes each 992-int block into its WAH words: CUDA
 kernel wah_tpu_torch/csrc/encode.cu for a CUDA tensor,
@@ -9,8 +9,14 @@ blocks' words into the dense stream tile by output tile
 last tile. `encode_padded` is the encode pipeline, K1 -> exclusive scan
 of the counts (torch.cumsum, outside the kernels as in wah_tpu) -> K2 or
 K6; `encode_rows_batch` the same over batched columns (K1 with a
-per-column position mask, K2 with per-row counts). Each `_plain` twin
-runs the same pipeline through the plain versions.
+per-column position mask, K2 with per-row counts). `encode_fused` (K5)
+is the whole single-stream pipeline in one kernel
+(wah_tpu_torch/csrc/encode_fused.cu: no staging array, the scan of the
+counts done inside the kernel by a decoupled look-back), and
+`encode_padded_fused` its `encode_padded`; as in wah_tpu the codec never
+selects it, it is an independent implementation to check the pipeline
+against. Each `_plain` twin runs the same pipeline through the plain
+versions.
 """
 from __future__ import annotations
 
@@ -29,6 +35,11 @@ __all__ = [
     "stitch_tiles",
     "encode_padded",
     "encode_padded_plain",
+    "encode_fused",
+    "encode_fused_plain",
+    "encode_padded_fused",
+    "encode_padded_fused_plain",
+    "check_fused_error",
     "encode_padded_batch",
     "encode_rows_batch",
     "encode_rows_batch_plain",
@@ -119,17 +130,24 @@ stitch_tiles.launches = 0
 STITCHES = ("v1", "v3", "auto")
 
 
-def _encode_padded(ints, n_valid_chunks: int, chunk_base: int, stitch: str, tiles, v3, v1):
+def _blocks_and_nv(ints, n_valid_chunks: int, chunk_base: int):
+    """(nb*992,) ints -> ((nb, 992) view, nv = [bound, chunk_base]), the bound
+    clamped to this call's blocks (wah_tpu encode_kernel._clamped_nv): a
+    shard's padding rows must not count as valid."""
     if ints.dim() != 1 or ints.shape[0] % BLOCK_INTS:
         raise ValueError(f"expected (nb*{BLOCK_INTS},) ints, got {tuple(ints.shape)}")
-    if stitch not in STITCHES:
-        raise ValueError(f"stitch must be one of {STITCHES}, got {stitch!r}")
     nb = ints.shape[0] // BLOCK_INTS
-    # clamp the bound to this call's blocks (wah_tpu encode_kernel._clamped_nv):
-    # a shard's padding rows must not count as valid
     bound = min(n_valid_chunks, chunk_base + nb * BLOCK_CHUNKS)
     nv = torch.tensor([bound, chunk_base], dtype=torch.int32, device=ints.device)
-    staging, counts = tiles(ints.view(nb, BLOCK_INTS), nv)
+    return ints.view(nb, BLOCK_INTS), nv
+
+
+def _encode_padded(ints, n_valid_chunks: int, chunk_base: int, stitch: str, tiles, v3, v1):
+    if stitch not in STITCHES:
+        raise ValueError(f"stitch must be one of {STITCHES}, got {stitch!r}")
+    ints2d, nv = _blocks_and_nv(ints, n_valid_chunks, chunk_base)
+    nb = ints2d.shape[0]
+    staging, counts = tiles(ints2d, nv)
     offsets_ext = torch.cat(
         [counts.new_zeros(1), torch.cumsum(counts[:, 0], dim=0, dtype=torch.int32)]
     )
@@ -169,6 +187,91 @@ def encode_padded_plain(
         ints, n_valid_chunks, chunk_base, stitch, encode_tiles_plain, stitch_tiles_plain,
         stitch_tiles_plain,
     )
+
+
+def encode_fused_plain(
+    ints2d: torch.Tensor, nv: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of encode_fused: the plain block encode, a cumsum
+    of its counts, the plain stitch (zeros past the total)."""
+    staging, counts = encode_tiles_plain(ints2d, nv)
+    offsets_ext = torch.cat(
+        [counts.new_zeros(1), torch.cumsum(counts[:, 0], dim=0, dtype=torch.int32)]
+    )
+    return stitch_tiles_plain(staging, offsets_ext), counts
+
+
+def _fused(ints2d: torch.Tensor, nv: torch.Tensor):
+    """encode_fused and the total as a 0-dim int32 tensor on the same device
+    (no host sync): the last block's inclusive prefix, read from the kernel's
+    workspace, or on the CPU the sum of the counts."""
+    check(ints2d, "ints2d", (None, BLOCK_INTS))
+    check(nv, "nv", (2,))
+    if on_cpu(ints2d, nv):
+        words, counts = encode_fused_plain(ints2d, nv)
+        return words, counts, counts.sum(dtype=torch.int32)
+    nb, dev = ints2d.shape[0], ints2d.device
+    words = torch.empty(nb * BLOCK_CHUNKS, dtype=torch.int32, device=dev)
+    counts = torch.empty((nb, 1), dtype=torch.int32, device=dev)
+    if not nb:
+        return words, counts, counts.sum(dtype=torch.int32)
+    from ._build import launch
+
+    # 64-bit words: the ticket, the error flag, one descriptor per block;
+    # zeroed on the launch's stream, so a launch never meets a stale one
+    ws = torch.zeros(nb + 2, dtype=torch.int64, device=dev)
+    launch(
+        "wah_encode_fused", dev, ints2d.data_ptr(), nv.data_ptr(), words.data_ptr(),
+        counts.data_ptr(), ws.data_ptr(), nb,
+    )
+    encode_fused.launches += 1
+    encode_fused.error = ws[1]
+    return words, counts, (ws[nb + 1] & 0xFFFFFFFF).to(torch.int32)
+
+
+def encode_fused(
+    ints2d: torch.Tensor, nv: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nb, 992) int32 bitmap blocks + nv = [bound, chunk_base] int32 ->
+    (words (nb*1024,) int32, counts (nb, 1) int32): the dense stream as a
+    prefix of `words` (what is past counts.sum() is unspecified) and each
+    block's word count. Chunk k of block b is valid when
+    chunk_base + 1024 b + k < bound.
+
+    One kernel, K5. Its waits between blocks are bounded: should one run
+    past its bound the kernel raises a flag instead of hanging, and the
+    outputs are then invalid. `check_fused_error()` reads the flag.
+    """
+    return _fused(ints2d, nv)[:2]
+
+
+encode_fused.launches = 0
+encode_fused.error = None  # the last launch's error flag, a 0-dim device tensor
+
+
+def check_fused_error() -> None:
+    """Raise if the last K5 launch gave up a wait (reads the flag: a host
+    sync). Call it after the launch, before trusting its outputs."""
+    if encode_fused.error is not None and int(encode_fused.error):
+        raise RuntimeError("encode_fused: a look-back wait ran past its bound; outputs invalid")
+
+
+def encode_padded_fused(
+    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """encode_padded through the one fused kernel, K5: (nb*992,) int32 ->
+    (words (nb*1024,), total int32 0-dim on the same device); words past
+    total are unspecified."""
+    words, _, total = _fused(*_blocks_and_nv(ints, n_valid_chunks, chunk_base))
+    return words, total
+
+
+def encode_padded_fused_plain(
+    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """encode_padded_fused through the plain versions, on any device."""
+    words, counts = encode_fused_plain(*_blocks_and_nv(ints, n_valid_chunks, chunk_base))
+    return words, counts.sum(dtype=torch.int32)
 
 
 def _encode_rows_batch(ints2d, C: int, n_valid_chunks: int, group_rows: int, tiles, stitch):
