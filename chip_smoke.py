@@ -21,6 +21,12 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
   3d. scans   T1's kernel (rows_scan: the kernels' shared block scans and
               warp search) against torch.cumsum / cummax / searchsorted at
               (4, 2048) and (32768, 2048), with ties in the search
+  3e. hazards K1 and K4, whose CTAs walk several blocks, at block counts
+              that are no multiple of their grids (1, 2, 263, 265, 32,767)
+              with a bound that ends inside the last block; K4 with capacity
+              past the stream's end and with a chunk base; K4 over batched
+              columns of which one fills its capacity exactly and one is
+              all-zero; both at 262,144 blocks (992 MB); each == plain
   4. codec    WahCodec("cuda").compress / .decompress: the bench protocol
               (stream == golden, in full), clustered, all-zero, all-one,
               odd sizes, tiny, empty, and the 992 MB sweep size (stream ==
@@ -47,8 +53,9 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
               in that path's own run
   6. times    CUDA-event milliseconds of each kernel and pipeline against
               the plain versions: the 130 MB protocol, K6 against K2 on
-              two stagings, the query folds; K5 beside the K1 + cumsum +
-              K2 pipeline; T1's kernel beside the torch scans; K2 and K6
+              two stagings, the query folds; K1 and K4 also on the query
+              shape's batched columns; K5 beside the K1 + cumsum + K2
+              pipeline; T1's kernel beside the torch scans; K2 and K6
               beside torch.masked_select; each kernel's bound from this
               run's bytes; host-clock seconds of the index build, of Q6
               and of the segment paths through the API
@@ -56,6 +63,13 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
 Any failure raises, so the exit code is not 0 and no result line is
 printed. The second-to-last line is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
+
+For work on a kernel, `python3 chip_smoke.py --kernels [--profile]` runs
+only phases 1-3e and the kernel and pipeline times of phase 6 (about a
+minute) and prints no result lines; `--profile` adds torch.profiler's
+per-kernel device times over a few launches. To time another tree of the
+port in the same call (two versions compare only within one call, on one
+card), copy this script into that tree and run it there.
 """
 from __future__ import annotations
 
@@ -232,11 +246,19 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def main() -> None:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="only phases 1-3e and the kernel times of phase 6; no result lines")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --kernels: torch.profiler's device times of a few launches")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
-    run(torch.device("cuda"))
+    run(torch.device("cuda"), kernels_only=args.kernels, profile=args.profile)
 
 
 class Phase:
@@ -257,8 +279,9 @@ class Phase:
             print(f"[{self.name}] wall {time.perf_counter() - self.t0:.2f} s", flush=True)
 
 
-def run(cuda) -> None:
-    """All phases on the CUDA device `cuda`."""
+def run(cuda, kernels_only: bool = False, profile: bool = False) -> None:
+    """All phases on the CUDA device `cuda`; with `kernels_only` the kernel
+    checks and times alone, without the result lines."""
     import torch
 
     from wah_tpu_torch.ops.cuda import _build
@@ -308,6 +331,13 @@ def run(cuda) -> None:
         phase_fused(cuda, errs, proto)
     with Phase("3d scans"):
         scans = phase_scans(cuda, errs, main_path)
+    with Phase("3e hazards"):
+        phase_hazards(cuda, errs, proto)
+    if kernels_only:
+        with Phase("6 times"):
+            ms, _ = phase_kernel_times(cuda, card, proto, query, scans, profile)
+        print_bounds(card, ms, kernel_bounds(proto, scans))
+        return
     with Phase("4 codec"):
         ratio, proto["golden"] = main_path(
             "codec", list(wrappers)[:4], lambda: phase_codec(cuda, proto["data"]))
@@ -328,13 +358,11 @@ def run(cuda) -> None:
     print(f"[5 counts] all main paths: {launches}")
 
     with Phase("6 times"):
-        ms, library_ms = phase_times(cuda, card, proto, query, index_times, scans, segment_times)
+        ms, library_ms = phase_kernel_times(cuda, card, proto, query, scans)
+        phase_host_times(cuda, card, index_times, segment_times)
     print(f"[6 times] compression ratio (words / ints): {ratio}")
     bounds = kernel_bounds(proto, scans)
-    for name, (bound_ms, by, nbytes) in bounds.items():
-        print(f"[6 times] {name}: bound {bound_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB moved at "
-              f"{PEAK_BYTES_PER_S / 1e12} TB/s), measured {ms[name][0]:.4f} ms = "
-              f"{bound_ms / ms[name][0]:.0%} of the bound's rate, on {card}")
+    print_bounds(card, ms, bounds)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -349,6 +377,13 @@ def run(cuda) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def print_bounds(card, ms, bounds) -> None:
+    for name, (bound_ms, by, nbytes) in bounds.items():
+        print(f"[6 times] {name}: bound {bound_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB moved at "
+              f"{PEAK_BYTES_PER_S / 1e12} TB/s), measured {ms[name][0]:.4f} ms = "
+              f"{bound_ms / ms[name][0]:.0%} of the bound's rate, on {card}")
 
 
 def kernel_bounds(proto, scans):
@@ -545,7 +580,7 @@ def phase_batch(cuda, errs):
     print(f"[3b batch] {C} columns x {nb} blocks ({mb:.1f} MB), P(bit) = 2^-{QUERY_ANDS}: "
           f"encode_rows_batch and decode_rows_batch == plain, round trip ok; "
           f"stream words per column {totals.tolist()}", flush=True)
-    return dict(cols=cols, n=n, cap=cap, words=words, totals=totals)
+    return dict(cols=cols, n=n, cap=cap, words=words, totals=totals, rows=rows)
 
 
 def phase_queries(cuda, query, main_path):
@@ -770,6 +805,125 @@ def phase_scans(cuda, errs, main_path):
     return dict(x=x, keys=keys)
 
 
+def phase_hazards(cuda, errs, proto):
+    """3e. K1 and K4 where a grid of CTAs that each walk several blocks could
+    go wrong; every comparison is with the plain version, tolerance 0."""
+    import torch
+
+    from wah_tpu_torch.ops.cuda import decode_kernel as dk
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+
+    ints, nb = proto["ints"], PROTOCOL_BLOCKS
+    err = {"encode_tiles": 0, "decode_blocks": 0}
+
+    def nv3(bound, base=0, mask=0x7FFFFFFF):
+        return torch.tensor([bound, base, mask], dtype=torch.int32, device=cuda)
+
+    def k1(name, x2d, nv):
+        got, want = ek.encode_tiles(x2d, nv), ek.encode_tiles_plain(x2d, nv)
+        err["encode_tiles"] = max(err["encode_tiles"], exact(f"K1 {name} staging", got[0], want[0]),
+                                  exact(f"K1 {name} counts", got[1], want[1]))
+        return got
+
+    def k4(name, stream, m, cap, base=0):
+        got, n = dk.decode(stream, m, cap, base)
+        want, n_p = dk.decode_plain(stream, m, cap, base)
+        if int(n) != int(n_p):
+            raise AssertionError(f"K4 {name}: n_ints {int(n)} != {int(n_p)}")
+        err["decode_blocks"] = max(err["decode_blocks"], exact(f"K4 {name}", got, want))
+        return got
+
+    def padded_stream(words, total):
+        out = torch.zeros(-(-total // 1024) * 1024, dtype=torch.int32, device=cuda)
+        out[:total] = words[:total]
+        return out
+
+    # block counts that no grid divides, the bound ending inside the last block
+    for n in (1, 2, 263, 265, nb - 1):
+        x, bound = ints[: n * 992], n * 1024 - 300
+        k1(f"{n} blocks", x.view(n, 992), nv3(bound))
+        words, total = ek.encode_padded(x, bound, stitch="v3")
+        back = k4(f"{n} blocks", padded_stream(words, int(total)), int(total), n * 1024)
+        n_ints = 31 * bound // 32  # the ints that lie wholly below the bound
+        if not torch.equal(back[:n_ints], x[:n_ints]):
+            raise AssertionError(f"K1 -> K4 at {n} blocks: no round trip")
+    # capacity past the stream's end (zeros), and a decoded span
+    back = k4("capacity past the stream", proto["stream"], proto["m"], (nb + 37) * 1024)
+    if back[nb * 992 :].any():
+        raise AssertionError("K4: chunks past the stream must decode to zero")
+    k4("chunk base 2 x 1024", proto["stream"], proto["m"], 5000 * 1024, 2 * 1024)
+    k4("chunk base near the end", proto["stream"], proto["m"], 300 * 1024, (nb - 263) * 1024)
+    # K1 with a position mask and a bound inside a column (the batch's validity)
+    k1("position mask", ints[: 1024 * 992].view(1024, 992), nv3(256 * 1024 - 77, 0, 256 * 1024 - 1))
+    k1("chunk base, bound inside", ints[: 530 * 992].view(530, 992), nv3(2 * 1024 + 529 * 1024 + 5, 2 * 1024))
+
+    # batched columns: one fills its capacity exactly (every chunk a literal:
+    # the tie of the granule search), one is all-zero, between others
+    cnb = 512
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+    rnd = torch.randint(-2**31, 2**31, (cnb * 992,), generator=gen, dtype=torch.int32, device=cuda)
+    cols = torch.stack([
+        ints[: cnb * 992], (rnd & -0x55555556) | 0x11111111, torch.zeros_like(rnd),
+        ints[cnb * 992 : 2 * cnb * 992], torch.full_like(rnd, -1), rnd & (rnd >> 7) & (rnd >> 13),
+    ])
+    C, cap = cols.shape[0], cnb * 1024
+    rows = cols.view(C * cnb, 992)
+    words, totals = ek.encode_rows_batch(rows, C, cnb * 1024)
+    words_p, totals_p = ek.encode_rows_batch_plain(rows, C, cnb * 1024)
+    e = exact("hazard batch totals", totals, totals_p)
+    if int(totals[1]) != cap or int(totals[2]) != cnb:
+        raise AssertionError(f"hazard batch: totals {totals.tolist()}: column 1 must fill its "
+                             f"capacity {cap} and column 2 be {cnb} fills")
+    for c in range(C):
+        t = int(totals[c])
+        e = max(e, exact(f"hazard batch column {c}", words[c * cap : c * cap + t],
+                         words_p[c * cap : c * cap + t]))
+    err["encode_tiles"] = max(err["encode_tiles"], e)
+    got = dk.decode_rows_batch(words, C, totals, cap)
+    err["decode_blocks"] = max(err["decode_blocks"], exact(
+        "K4 batched columns", got, dk.decode_rows_batch_plain(words, C, totals, cap)))
+    if not torch.equal(got, rows.reshape(-1)):
+        raise AssertionError("hazard batch: the columns do not round-trip")
+    del cols, rows, words, words_p, got, rnd
+
+    # the sweep's largest size for both kernels; the plain versions go one
+    # protocol-sized span at a time
+    big_nb = SWEEP_MAX_BLOCKS
+    big = torch.randint(-2**31, 2**31, (big_nb * 992,), generator=gen, dtype=torch.int32, device=cuda)
+    for _ in range(3):
+        big &= torch.randint(-2**31, 2**31, big.shape, generator=gen, dtype=torch.int32, device=cuda)
+    bound = big_nb * 1024 - 300
+    staging, counts = ek.encode_tiles(big.view(big_nb, 992), nv3(bound))
+    e = 0
+    for lo in range(0, big_nb, nb):
+        st_p, ct_p = ek.encode_tiles_plain(big[lo * 992 : (lo + nb) * 992].view(nb, 992),
+                                           nv3(bound, lo * 1024))
+        e = max(e, exact(f"K1 992 MB staging from block {lo}", staging[lo : lo + nb], st_p),
+                exact(f"K1 992 MB counts from block {lo}", counts[lo : lo + nb], ct_p))
+    err["encode_tiles"] = max(err["encode_tiles"], e)
+    del staging, counts
+    words, total = ek.encode_padded(big, bound, stitch="v3")
+    m = int(total)
+    stream = padded_stream(words, m)
+    del words
+    back, _ = dk.decode(stream, m, big_nb * 1024)
+    e = 0
+    for lo in range(0, big_nb, nb):
+        want, _ = dk.decode_plain(stream, m, nb * 1024, lo * 1024)
+        e = max(e, exact(f"K4 992 MB from block {lo}", back[lo * 992 : (lo + nb) * 992], want))
+    err["decode_blocks"] = max(err["decode_blocks"], e)
+    n_ints = 31 * bound // 32
+    if not torch.equal(back[:n_ints], big[:n_ints]):
+        raise AssertionError("K1 -> K4 at 992 MB: no round trip")
+    for k, v in err.items():
+        errs[k] = max(errs[k], v)
+    print(f"[3e hazards] K1 and K4 == plain at 1, 2, 263, 265 and {nb - 1} blocks, K4 with capacity "
+          f"past the stream and with chunk bases, K1 with a position mask, {C} batched columns of "
+          f"{cnb} blocks (totals {totals.tolist()}: one at capacity, one all-zero), and at "
+          f"{big_nb} blocks ({big_nb * 992 * 4 / 1e6:.0f} MB, {m} words): bit-exact, round trips ok",
+          flush=True)
+
+
 def phase_segments(cuda, proto, main_path):
     """4d. The any-size paths through the API, at full width."""
     from wah_tpu_torch import WahCodec, api, golden
@@ -903,13 +1057,12 @@ def phase_cli():
           f"{info.strip()}; {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def phase_times(cuda, card, proto, query, index_times, scans, segment_times):
+def phase_kernel_times(cuda, card, proto, query, scans, profile: bool = False):
     """6. CUDA-event ms, kernel against plain and against the one PyTorch call
-    for the same function; host-clock seconds of the index and the segments."""
+    for the same function."""
     import torch
 
     from wah_tpu_torch import golden
-    from wah_tpu_torch.convert import words_to_tensor
     from wah_tpu_torch.ops import logical
     from wah_tpu_torch.ops.cuda import decode_kernel as dk
     from wah_tpu_torch.ops.cuda import encode_kernel as ek
@@ -986,15 +1139,6 @@ def phase_times(cuda, card, proto, query, index_times, scans, segment_times):
           flush=True)
     del mask, csum
 
-    st = segment_times
-    print(f"[6 times] segments through the API (host clock): compress_segments "
-          f"{st['compress_segments_s']:.3f} s ({st['segments_bytes'] / st['compress_segments_s'] / 1e9:.3f} "
-          f"GB/s of bitmap), decompress_segments {st['decompress_segments_s']:.3f} s "
-          f"({st['segments_bytes'] / st['decompress_segments_s'] / 1e9:.3f} GB/s); "
-          f"compress_batch_segments {st['compress_batch_segments_s']:.3f} s "
-          f"({st['batch_bytes'] / st['compress_batch_segments_s'] / 1e9:.3f} GB/s), "
-          f"decompress_batch_segments {st['decompress_batch_segments_s']:.3f} s "
-          f"({st['batch_bytes'] / st['decompress_batch_segments_s'] / 1e9:.3f} GB/s) on {card}", flush=True)
     # K6 against K2 on the same staging: the protocol's (2^-4, dense), the
     # all-zero bitmap's, and 130 MB stagings at the densities between, where
     # the "auto" stitch chooses (K6 iff total <= 3/8 of capacity)
@@ -1033,6 +1177,60 @@ def phase_times(cuda, card, proto, query, index_times, scans, segment_times):
     ):
         measure(name, lambda: fn(False), lambda: fn(True), k * col_bytes / 1e9, "logical bitmap")
 
+    # K1 and K4 alone on the query shape's batched columns, where the folds
+    # launch them; the bound from the words these columns hold
+    C = QUERY_COLUMNS
+    k1_args = (q["rows"], torch.tensor([golden.chunk_count(qn), 0, cap - 1], dtype=torch.int32,
+                                       device=cuda))
+    k4_args = []
+
+    def keep_args(*args):  # stands in for K4 in the batched decode: K3 and the rebase run
+        k4_args.extend(args)
+        return torch.empty(0, dtype=torch.int32, device=cuda)
+
+    dk._decode_rows_batch(words, C, totals, cap, dk.prescan_words, keep_args)
+    q_blocks, q_words = C * QUERY_BLOCKS, int(totals.sum())
+    for name, fn, plain_fn, args, nbytes in (
+        ("K1 encode_tiles, batched", ek.encode_tiles, ek.encode_tiles_plain, k1_args,
+         q_blocks * (992 + 1024 + 1) * 4 + 12),
+        ("K4 decode_blocks, batched", dk.decode_blocks, dk.decode_blocks_plain, k4_args,
+         q_words * 4 + k4_args[1].numel() * 4 + 16 + q_blocks * 992 * 4),
+    ):
+        measure(name, lambda: fn(*args), lambda: plain_fn(*args), C * col_bytes / 1e9, "bitmap")
+        print(f"[6 times] {name} ({C} x {QUERY_BLOCKS} blocks, 2^-{QUERY_ANDS}): bound "
+              f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB), measured "
+              f"{ms[name][0]:.4f} ms on {card}", flush=True)
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as profiler
+
+        with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                for name in ("encode_tiles", "decode_blocks", "encode_fused", "encode pipeline",
+                             "decode pipeline"):
+                    timed[name][0]()
+            torch.cuda.synchronize()
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
+    return ms, library_ms
+
+
+def phase_host_times(cuda, card, index_times, segment_times):
+    """6. Host-clock seconds of the segment paths and the index through the
+    API, and Q6's device pipeline alone (CUDA events)."""
+    import torch
+
+    from wah_tpu_torch.convert import words_to_tensor
+    from wah_tpu_torch.ops import logical
+
+    st = segment_times
+    print(f"[6 times] segments through the API (host clock): compress_segments "
+          f"{st['compress_segments_s']:.3f} s ({st['segments_bytes'] / st['compress_segments_s'] / 1e9:.3f} "
+          f"GB/s of bitmap), decompress_segments {st['decompress_segments_s']:.3f} s "
+          f"({st['segments_bytes'] / st['decompress_segments_s'] / 1e9:.3f} GB/s); "
+          f"compress_batch_segments {st['compress_batch_segments_s']:.3f} s "
+          f"({st['batch_bytes'] / st['compress_batch_segments_s'] / 1e9:.3f} GB/s), "
+          f"decompress_batch_segments {st['decompress_batch_segments_s']:.3f} s "
+          f"({st['batch_bytes'] / st['decompress_batch_segments_s'] / 1e9:.3f} GB/s) on {card}", flush=True)
     # the index through the API, host clock (numpy in and out), and Q6's
     # device pipeline alone on device-resident columns (CUDA events)
     t = index_times["times"]
@@ -1056,7 +1254,6 @@ def phase_times(cuda, card, proto, query, index_times, scans, segment_times):
           f"pipeline {q6_dev:.4f} ms; other queries "
           f"{ {k: round(v, 4) for k, v in t.items() if k not in ('build_s', 'q6_quantity_lt_24')} } s "
           f"on {card}", flush=True)
-    return ms, library_ms
 
 
 if __name__ == "__main__":

@@ -131,3 +131,30 @@ def test_port_never_imports_jax_or_wah_tpu():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "wah_tpu"), f"{path}: imports {name}"
+
+
+def _c_entries():
+    """C entry -> its parameters' types, as declared in wah_tpu_torch/csrc/*.cu."""
+    import re
+
+    entries = {}
+    for src in sorted((ROOT / "wah_tpu_torch" / "csrc").glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (wah_\w+)\(([^)]*)\)', src.read_text()):
+            entries[name] = [" ".join(p.split()[:-1]) for p in params.split(",")]
+    return entries
+
+
+@pytest.mark.parametrize("entry", sorted(_c_entries()))
+def test_ctypes_signature_matches_the_c_entry(entry):
+    """The kernels cannot be built here, so the argument lists that ctypes is
+    given are held against the sources: pointers as void*, sizes as int, the
+    stream last."""
+    import ctypes
+
+    from wah_tpu_torch.ops.cuda import _build
+
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
+    declared = _c_entries()
+    assert sorted(declared) == sorted(_build._SIGNATURES)
+    assert [kinds[p] for p in declared[entry]] == _build._SIGNATURES[entry]
+    assert declared[entry][-1] == "void*"

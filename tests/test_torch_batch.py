@@ -133,6 +133,32 @@ def test_decode_rows_batch_plain_matches_pallas():
         np.testing.assert_array_equal(out[c, :n], cols[c])
 
 
+@pytest.mark.parametrize("order", ["as_built", "reversed"])
+def test_decode_rows_batch_full_capacity_matches_pallas(order):
+    """A column that fills its capacity exactly (the tie of K4's granule
+    search: the next column's first block must go to that column) beside an
+    all-zero one, block-aligned, behind tails of random words."""
+    cols = _full_capacity_columns()
+    if order == "reversed":
+        cols = cols[::-1].copy()
+    C, n = cols.shape
+    streams = [golden.encode(c) for c in cols]
+    ms = np.array([len(s) for s in streams], np.int32)
+    cap = NB * BLOCK_CHUNKS
+    assert cap in ms.tolist() and NB in ms.tolist()
+    Mcap = cap + BLOCK_CHUNKS
+    rng = np.random.default_rng(6)
+    w2 = rng.integers(0, 2**32, size=(C, Mcap), dtype=np.uint64).astype(np.uint32)
+    for i, s in enumerate(streams):
+        w2[i, : len(s)] = s
+    jflat = np.asarray(jax.jit(partial(jdk.decode_rows_batch, C=C, col_chunk_capacity=cap))(
+        w2.reshape(-1), ms=ms))
+    for fn in (dk.decode_rows_batch_plain, dk.decode_rows_batch):
+        flat = fn(words_to_tensor(w2.reshape(-1), "cpu"), C, torch.from_numpy(ms), cap)
+        np.testing.assert_array_equal(tensor_to_words(flat), jflat)
+    np.testing.assert_array_equal(jflat.reshape(C, -1), cols)
+
+
 def test_decode_rows_batch_refuses_int32_overflow():
     words = torch.zeros(4 * BLOCK_CHUNKS, dtype=torch.int32)
     ms = torch.ones(4, dtype=torch.int32)

@@ -3,7 +3,10 @@
 Each kernel against its plain torch version on the same CUDA tensors, and
 WahCodec("cuda") against the golden model, on small edge cases that
 chip_smoke.py does not reach: partial and shard-offset validity, the
-long-fill and granule-window-extreme streams, a decoded span; K6's
+long-fill and granule-window-extreme streams, a decoded span; K1, K4 and
+K5 at block counts that no grid divides, decoded spans past the stream's
+end, K1's validity with the bound inside a block, a capacity-filling
+column beside an all-zero one; K6's
 offset ties, exact-tile, full and one-word totals; batched columns with a
 capacity-filling column and garbage tails; the logical pipeline; K5
 against its plain version, the K1 + K2 pipeline and golden, twice in a
@@ -347,6 +350,128 @@ def test_encode_fused_shard_padding_emits_no_spurious_words(cuda):
     assert int(total) == 3 and tensor_to_words(words[:3]).tolist() == [
         0x80000000 | 1024, 0x80000000 | 1024, 0x80000000 | 5]
     ek.check_fused_error()
+
+
+# K1 and K4 walk several blocks a CTA (K4 a contiguous range, K1 a stride of
+# its grid): block counts that no grid divides, the bitmap ending inside the
+# last block
+BLOCK_COUNTS = [1, 2, 263, 265]
+
+
+def _ending_inside(n_blocks: int) -> np.ndarray:
+    return _bitmap(n_blocks * BLOCK_INTS - 300, 1 / 16, n_blocks)
+
+
+@pytest.mark.parametrize("n_blocks", BLOCK_COUNTS)
+def test_kernels_at_block_counts_match_plain_and_golden(cuda, n_blocks):
+    data = _ending_inside(n_blocks)
+    padded, nv = _padded(data)
+    assert len(padded) == n_blocks * BLOCK_INTS and nv % BLOCK_CHUNKS
+    ints = words_to_tensor(padded, cuda)
+    nv_t = torch.tensor([nv, 0], dtype=torch.int32, device=cuda)
+    staging, counts = ek.encode_tiles(ints.view(n_blocks, -1), nv_t)
+    staging_p, counts_p = ek.encode_tiles_plain(ints.view(n_blocks, -1), nv_t)
+    assert torch.equal(staging, staging_p) and torch.equal(counts, counts_p)
+    words, total = ek.encode_padded(ints, nv, stitch="v3")
+    t = int(total)
+    stream = golden.encode(data)
+    np.testing.assert_array_equal(tensor_to_words(words[:t]), stream)
+    # K5 on the same blocks: still the K1 + K2 pipeline's stream
+    words_f, total_f = ek.encode_padded_fused(ints, nv)
+    ek.check_fused_error()
+    assert int(total_f) == t and torch.equal(words_f[:t], words[:t])
+    M = -(-t // BLOCK_CHUNKS) * BLOCK_CHUNKS
+    padded_words = torch.zeros(M, dtype=torch.int32, device=cuda)
+    padded_words[:t] = words[:t]
+    back, n_ints = dk.decode(padded_words, t, n_blocks * BLOCK_CHUNKS)
+    back_p, n_ints_p = dk.decode_plain(padded_words, t, n_blocks * BLOCK_CHUNKS)
+    assert int(n_ints) == int(n_ints_p) and torch.equal(back, back_p)
+    np.testing.assert_array_equal(tensor_to_words(back)[: len(data)], data)
+
+
+# (capacity in blocks, chunk base in blocks) over a 9-block stream: capacity
+# past the stream's end, spans from a chunk base, a span wholly past the end
+SPANS = {"past_the_end": (40, 0), "base_2": (7, 2), "base_2_past_the_end": (300, 2),
+         "base_7_one_block": (1, 7), "wholly_past_the_end": (5, 12)}
+
+
+@pytest.mark.parametrize("name", SPANS)
+def test_decode_spans_match_plain_and_golden(cuda, name):
+    cap_blocks, base_blocks = SPANS[name]
+    data = _ending_inside(9)
+    stream = golden.encode(data)
+    m = len(stream)
+    words = torch.zeros(-(-m // 1024) * 1024, dtype=torch.int32, device=cuda)
+    words[:m] = words_to_tensor(stream, cuda)
+    cap, base = cap_blocks * BLOCK_CHUNKS, base_blocks * BLOCK_CHUNKS
+    before = dk.decode_blocks.launches
+    ints, n_ints = dk.decode(words, m, cap, chunk_base=base)
+    assert dk.decode_blocks.launches == before + 1
+    ints_p, n_ints_p = dk.decode_plain(words, m, cap, chunk_base=base)
+    assert int(n_ints) == int(n_ints_p) and torch.equal(ints, ints_p)
+    want = np.zeros(cap_blocks * BLOCK_INTS, np.uint32)
+    rest = golden.decode(stream)[base_blocks * BLOCK_INTS :][: len(want)]
+    want[: len(rest)] = rest
+    np.testing.assert_array_equal(tensor_to_words(ints), want)
+
+
+@pytest.mark.parametrize("name", ["mask_bound_inside_a_block", "base_bound_inside_a_block",
+                                  "mask_and_base"])
+def test_encode_tiles_validity_matches_plain(cuda, name):
+    """K1's validity ((chunk_base + position) & pos_mask) < bound with the
+    bound inside a block: per-column wrap, a shard's base, and both."""
+    nb = 96
+    ints = words_to_tensor(_bitmap(nb * BLOCK_INTS, 1 / 16, 71), cuda).view(nb, -1)
+    col = 32 * BLOCK_CHUNKS
+    nv = {"mask_bound_inside_a_block": [col - 77, 0, col - 1],
+          "base_bound_inside_a_block": [2 * BLOCK_CHUNKS + 90 * BLOCK_CHUNKS + 5, 2 * BLOCK_CHUNKS,
+                                        0x7FFFFFFF],
+          "mask_and_base": [col - 1500, col, col - 1]}[name]
+    nv_t = torch.tensor(nv, dtype=torch.int32, device=cuda)
+    staging, counts = ek.encode_tiles(ints, nv_t)
+    staging_p, counts_p = ek.encode_tiles_plain(ints, nv_t)
+    assert torch.equal(staging, staging_p) and torch.equal(counts, counts_p)
+    assert int(counts.sum()) > 0 and int(counts[-1]) < BLOCK_CHUNKS
+
+
+@pytest.mark.parametrize("order", ["as_built", "reversed"])
+@pytest.mark.parametrize("nb", [8, 64])
+def test_batch_capacity_column_beside_all_zero_one(cuda, nb, order):
+    """A column that fills its capacity exactly (the tie of K4's granule
+    probe and search) beside an all-zero one, in both orders, block-aligned."""
+    cols = _batch_columns(nb * BLOCK_INTS)
+    if order == "reversed":
+        cols = cols[::-1].copy()
+    C, cap = cols.shape[0], nb * BLOCK_CHUNKS
+    rows = words_to_tensor(cols.reshape(-1), cuda).view(C * nb, BLOCK_INTS)
+    words, totals = ek.encode_rows_batch(rows, C, golden.chunk_count(cols.shape[1]))
+    words_p, totals_p = ek.encode_rows_batch_plain(rows, C, golden.chunk_count(cols.shape[1]))
+    assert torch.equal(totals, totals_p)
+    assert cap in totals.tolist() and nb in totals.tolist()
+    for c in range(C):
+        t = int(totals[c])
+        assert torch.equal(words[c * cap : c * cap + t], words_p[c * cap : c * cap + t]), c
+        np.testing.assert_array_equal(tensor_to_words(words[c * cap : c * cap + t]),
+                                      golden.encode(cols[c]))
+    ints = dk.decode_rows_batch(words, C, totals, cap)
+    assert torch.equal(ints, dk.decode_rows_batch_plain(words, C, totals, cap))
+    np.testing.assert_array_equal(tensor_to_words(ints).reshape(C, -1), cols)
+
+
+def test_kernels_refuse_unaligned_tensors(cuda):
+    """K1, K5 and K4 copy 16 B vectors: a view that starts off a 16 B
+    boundary raises instead of launching."""
+    flat = torch.zeros(4 * BLOCK_INTS + 1, dtype=torch.int32, device=cuda)
+    nv = torch.tensor([4 * BLOCK_CHUNKS, 0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16 B"):
+        ek.encode_tiles(flat[1:].view(4, BLOCK_INTS), nv)
+    with pytest.raises(ValueError, match="16 B"):
+        ek.encode_fused(flat[1:].view(4, BLOCK_INTS), nv)
+    words = torch.zeros(8 * 128 + 1, dtype=torch.int32, device=cuda)
+    meta = torch.tensor([0, 0, 0, 0x7FFFFFFF], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16 B"):
+        dk.decode_blocks(words[1:].view(8, 128), torch.zeros(8, dtype=torch.int32, device=cuda),
+                         meta, 1)
 
 
 SCANS = {

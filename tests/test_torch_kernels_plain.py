@@ -167,8 +167,32 @@ def _granule_extremes():
     return stream, 2 * BLOCK_CHUNKS
 
 
+def _protocol_like(n_ints: int, seed: int) -> np.ndarray:
+    """P(bit) = 2^-4, as the bench protocol: mostly literals, short fills."""
+    rng = np.random.default_rng(seed)
+    out = rng.integers(0, 1 << 32, size=n_ints, dtype=np.uint32)
+    for _ in range(3):
+        out &= rng.integers(0, 1 << 32, size=n_ints, dtype=np.uint32)
+    return out
+
+
+# block counts that divide into no grid of CTAs walking several blocks each,
+# the bitmap ending inside the last block: what the CUDA kernels are held to
+# on the card (tests/test_torch_cuda.py), held here to the Pallas kernels
+BLOCK_COUNTS = [1, 2, 263, 265]
+
+
+def _ending_inside(n_blocks: int) -> np.ndarray:
+    return _protocol_like(n_blocks * BLOCK_INTS - 300, seed=n_blocks)
+
+
 STREAMS = [(name, (lambda g=gen: (golden.encode(g()), NB * BLOCK_CHUNKS))) for name, gen in CASES]
 STREAMS += [("long_fills", _long_fill), ("granule_extremes", _granule_extremes)]
+STREAMS += [(f"blocks_{n}", (lambda n=n: (golden.encode(_ending_inside(n)), n * BLOCK_CHUNKS)))
+            for n in BLOCK_COUNTS]
+# capacity past the stream's end: the blocks past it decode to zeros
+STREAMS += [("capacity_past_the_stream",
+             lambda: (golden.encode(_ending_inside(5)), (5 + 11) * BLOCK_CHUNKS))]
 
 
 @pytest.mark.parametrize("name,make", STREAMS, ids=[s[0] for s in STREAMS])
@@ -184,6 +208,57 @@ def test_decode_plain_matches_pallas(name, make):
         assert ints.shape == (cap // BLOCK_CHUNKS * BLOCK_INTS,)
         np.testing.assert_array_equal(_n(ints)[:jn], np.asarray(jints)[:jn])
     np.testing.assert_array_equal(_n(ints)[:jn], golden.decode(stream))
+    assert not _n(ints)[jn:].any()  # chunks past the stream decode to zero
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["nv2", "nv3"])
+@pytest.mark.parametrize("n_blocks", BLOCK_COUNTS)
+def test_encode_tiles_plain_block_counts_match_pallas(n_blocks, mask):
+    """K1's plain version at BLOCK_COUNTS, the bound ending inside the last
+    block; with `mask` the blocks are columns of 2^k blocks and validity
+    wraps per column (the batch's use of K1), the bound inside a column."""
+    data = _ending_inside(n_blocks)
+    nb8 = -(-n_blocks // 8) * 8  # the Pallas kernel takes whole tiles of 8 blocks
+    ints2d = np.zeros((nb8, BLOCK_INTS), np.uint32)
+    ints2d.reshape(-1)[: len(data)] = data
+    bound = golden.chunk_count(len(data))
+    if mask:
+        col_blocks = 1 << max(n_blocks.bit_length() - 2, 0)
+        col = col_blocks * BLOCK_CHUNKS
+        nv_arr = np.array([col - 300, 0, col - 1], np.int32)
+    else:
+        nv_arr = np.array([bound, 0], np.int32)
+    jstaging, jcounts = jax.jit(jek.encode_tiles)(ints2d, nv_arr)
+    jstaging, jcounts = np.asarray(jstaging)[:n_blocks], np.asarray(jcounts)[:n_blocks]
+    tints = _t(ints2d.reshape(-1)).view(nb8, -1)[:n_blocks]
+    for fn in (ek.encode_tiles_plain, ek.encode_tiles):
+        staging, counts = fn(tints, torch.from_numpy(nv_arr))
+        np.testing.assert_array_equal(_n(staging), jstaging)
+        np.testing.assert_array_equal(counts.numpy(), jcounts)
+    if not mask:
+        stream = np.concatenate([jstaging[b, : jcounts[b, 0]] for b in range(n_blocks)])
+        np.testing.assert_array_equal(stream, golden.encode(data))
+
+
+@pytest.mark.parametrize("base_blocks", [2, 7])
+def test_decode_span_block_counts_match_pallas(base_blocks):
+    """A decoded span from chunk_base = base_blocks * 1024 that runs past the
+    stream's end: decode_plain against the Pallas kernel and golden."""
+    data = _ending_inside(9)
+    stream = golden.encode(data)
+    words, m = _stream(stream), len(stream)
+    cap, base = 11 * BLOCK_CHUNKS, base_blocks * BLOCK_CHUNKS
+    jints, jn = jax.jit(
+        lambda w, mm, b: jdk.decode(w, mm, cap, chunk_base=b)
+    )(words, np.int32(m), np.int32(base))
+    want = np.zeros(cap // BLOCK_CHUNKS * BLOCK_INTS, np.uint32)
+    rest = golden.decode(stream)[base_blocks * BLOCK_INTS :]
+    want[: len(rest)] = rest
+    for fn in (dk.decode_plain, dk.decode):
+        ints, n_ints = fn(_t(words), m, cap, chunk_base=base)
+        assert int(n_ints) == int(jn)
+        np.testing.assert_array_equal(_n(ints), np.asarray(jints))
+        np.testing.assert_array_equal(_n(ints), want)
 
 
 def test_decode_span_chunk_base_matches_pallas():

@@ -9,18 +9,23 @@
 // memory is the scan, and a pending window with double-buffered flushes
 // exists because stores are tile-aligned. Neither carries over. Here it is
 // a single-pass encode with a decoupled look-back scan:
-//   1. A CTA of 1024 threads takes its logical block index from an atomic
-//      ticket, never from blockIdx: CTAs are not scheduled in blockIdx order,
-//      and a CTA may wait only for CTAs that are already running.
-//   2. It encodes its block with encode_block (shared with K1) and publishes
-//      the block's word count as an AGGREGATE descriptor.
+//   1. A CTA of 128 threads (the shape of encode_block.cuh) takes its logical
+//      block index from an atomic ticket, never from blockIdx: CTAs are not
+//      scheduled in blockIdx order, and a CTA may wait only for CTAs that are
+//      already running. It takes one block, so it waits only for tickets
+//      below its own.
+//   2. It copies the block's ints to shared memory and encodes them with
+//      encode_block (shared with K1), which leaves the block's words as a
+//      dense row in shared memory, and publishes the block's word count as
+//      an AGGREGATE descriptor.
 //   3. Warp 0 looks back over the predecessors' descriptors, 32 per step
 //      (lane l polls block b-1-l, then b-33-l, ...): it waits until none of
 //      the 32 is empty, adds the aggregates up to and including the nearest
 //      INCLUSIVE one, and stops there, else steps back 32 more. Blocks before
 //      block 0 count as inclusive 0. It then publishes its own inclusive
 //      prefix, so a successor seldom looks further back than one step.
-//   4. Every run start writes its word to out[prefix + slot].
+//   4. The row goes to out[prefix .. prefix + count) in order, neighbouring
+//      threads on neighbouring words.
 // A descriptor is one 64-bit word, status in the high half and value in the
 // low half, stored and loaded as one access so it cannot tear; a
 // __threadfence() precedes each store and the loads are volatile.
@@ -32,8 +37,9 @@
 // poll or at its start and leaves too. The caller reads the flag after a
 // sync. The last block's inclusive prefix, desc[nb-1], is the total.
 //
-// Bound: memory. Per block it reads 3,968 B of ints and writes its words
-// (at most 4,096 B), a 4 B count and an 8 B descriptor; no staging array.
+// Bound: memory by its bytes. Per block it reads 3,968 B of ints and writes
+// its words (at most 4,096 B), a 4 B count and an 8 B descriptor; no staging
+// array. What it waits for is the look-back: dependent round trips to L2.
 #include "encode_block.cuh"
 
 namespace {
@@ -80,9 +86,10 @@ __device__ __forceinline__ int look_back(volatile desc_t* desc, volatile int* er
   }
 }
 
-__global__ void __launch_bounds__(kBlockChunks)
+__global__ void __launch_bounds__(kEncodeThreads)
 encode_fused_kernel(const uint32_t* __restrict__ ints, const int32_t* __restrict__ nv,
                     uint32_t* __restrict__ out, int32_t* __restrict__ counts, desc_t* ws) {
+  __shared__ __align__(16) EncodeShared s;
   __shared__ int s_block, s_prefix;
   volatile int* err = (volatile int*)(ws + 1);
   volatile desc_t* desc = ws + 2;
@@ -92,8 +99,9 @@ encode_fused_kernel(const uint32_t* __restrict__ ints, const int32_t* __restrict
   const int b = s_block;
   if (b < 0) return;  // an earlier CTA failed: the whole CTA leaves
 
-  int count;
-  const BlockWord w = encode_block(ints, b, nv[0], nv[1], (int)kOnes31, &count);
+  copy_block_ints(s, 0, ints, b);
+  cp_async_wait<0>();
+  const int count = encode_block(s, 0, b, nv[0], nv[1], (int)kOnes31);
 
   if (threadIdx.x < 32) {
     int prefix = 0;
@@ -110,14 +118,15 @@ encode_fused_kernel(const uint32_t* __restrict__ ints, const int32_t* __restrict
   __syncthreads();
   const int prefix = s_prefix;
   if (prefix < 0) return;
-  if (w.start) out[(size_t)prefix + w.slot] = w.word;
+  // the block's words lie dense in s.row: they go out in order
+  for (int j = threadIdx.x; j < count; j += kEncodeThreads) out[(size_t)prefix + j] = s.row[j];
 }
 
 }  // namespace
 
 extern "C" int wah_encode_fused(const void* ints, const void* nv, void* out, void* counts,
                                 void* ws, int nb, void* stream) {
-  encode_fused_kernel<<<nb, kBlockChunks, 0, (cudaStream_t)stream>>>(
+  encode_fused_kernel<<<nb, kEncodeThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)ints, (const int32_t*)nv, (uint32_t*)out, (int32_t*)counts,
       (desc_t*)ws);
   return (int)cudaGetLastError();

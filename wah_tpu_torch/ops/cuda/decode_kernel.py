@@ -4,7 +4,13 @@
 each 128-word granule's expanded size; `decode_blocks` (K4, the
 counterpart of `_run_decode`) expands and merges each 1024-chunk output
 block. Both run their CUDA kernel (wah_tpu_torch/csrc/decode.cu) for a
-CUDA tensor and their plain version for a CPU tensor. `decode` is the
+CUDA tensor and their plain version for a CPU tensor. K4 is bound by
+memory on paper and by latency in practice, so its kernel is built
+around that (decode.cu's header): CTAs of 160 threads that each walk a
+range of output blocks, the covering granule from a probe of the next
+entries of `g_base` instead of a search, the next block's window copied
+by cp.async while this one expands, one scan, no search for the
+covering words, 16 B loads and stores. `decode` is the
 decode pipeline, K3 -> exclusive scan of the granule sums (torch.cumsum,
 outside the kernels as in wah_tpu) -> K4; `decode_rows_batch` the same
 over batched columns (K3 with per-column valid counts, K4 with a
@@ -120,7 +126,10 @@ def decode_blocks(
     exclusive scan of prescan_words' g_sums; meta (4,) int32:
     [n_chunks, m, chunk_base, pos_mask]. Output block bo holds chunks
     [chunk_base + 1024 bo, + 1024) merged to 32-bit ints; chunks whose
-    (position & pos_mask) >= n_chunks are zero.
+    (position & pos_mask) >= n_chunks are zero. chunk_base is a multiple
+    of 1024 and pos_mask is 2^k - 1 with k >= 10 (0x7FFFFFFF for one
+    stream, the column capacity - 1 for batched columns), so the valid
+    chunks of a block are a prefix of it; g_base is non-decreasing.
     """
     rows = words_t.shape[0]
     check(words_t, "words_t", (None, GRANULE))
@@ -130,6 +139,8 @@ def decode_blocks(
         raise ValueError("words_t: need at least one granule row")
     if on_cpu(words_t, g_base, meta):
         return decode_blocks_plain(words_t, g_base, meta, nbo)
+    if words_t.data_ptr() % 16:
+        raise ValueError("words_t: the kernel copies 16 B vectors; pass a 16 B-aligned tensor")
     out = torch.empty((nbo, BLOCK_INTS), dtype=torch.int32, device=words_t.device)
     if nbo:
         from ._build import launch

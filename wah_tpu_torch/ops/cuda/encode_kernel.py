@@ -3,7 +3,12 @@ of wah_tpu/ops/pallas/encode_kernel.py.
 
 `encode_tiles` (K1) encodes each 992-int block into its WAH words: CUDA
 kernel wah_tpu_torch/csrc/encode.cu for a CUDA tensor,
-`encode_tiles_plain` for a CPU tensor. `stitch_tiles` (K6) lays the
+`encode_tiles_plain` for a CPU tensor. K1 and K5 share the per-block
+encode of csrc/encode_block.cuh, built for a kernel that memory bounds
+on paper and latency in practice: CTAs of 128 threads, eight chunks a
+thread, the block's ints copied by cp.async into a two-stage staging,
+run starts and fill lengths from ballots, the block's row compacted in
+shared memory and stored 16 B a thread. `stitch_tiles` (K6) lays the
 blocks' words into the dense stream tile by output tile
 (wah_tpu_torch/csrc/stitch_gather.cu), with K2's contract plus a zeroed
 last tile. `encode_padded` is the encode pipeline, K1 -> exclusive scan
@@ -57,6 +62,11 @@ def _nv3(nv: torch.Tensor) -> torch.Tensor:
     return nv.to(torch.int32).contiguous()
 
 
+def _check_aligned(ints2d: torch.Tensor) -> None:
+    if ints2d.data_ptr() % 16:
+        raise ValueError("ints2d: the kernel copies 16 B vectors; pass a 16 B-aligned tensor")
+
+
 def encode_tiles_plain(
     ints2d: torch.Tensor, nv: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -81,6 +91,7 @@ def encode_tiles(
     nv = _nv3(nv)
     if on_cpu(ints2d, nv):
         return encode_tiles_plain(ints2d, nv)
+    _check_aligned(ints2d)
     nb = ints2d.shape[0]
     staging = torch.empty((nb, BLOCK_CHUNKS), dtype=torch.int32, device=ints2d.device)
     counts = torch.empty((nb, 1), dtype=torch.int32, device=ints2d.device)
@@ -210,6 +221,7 @@ def _fused(ints2d: torch.Tensor, nv: torch.Tensor):
     if on_cpu(ints2d, nv):
         words, counts = encode_fused_plain(ints2d, nv)
         return words, counts, counts.sum(dtype=torch.int32)
+    _check_aligned(ints2d)
     nb, dev = ints2d.shape[0], ints2d.device
     words = torch.empty(nb * BLOCK_CHUNKS, dtype=torch.int32, device=dev)
     counts = torch.empty((nb, 1), dtype=torch.int32, device=dev)
