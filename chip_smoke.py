@@ -16,11 +16,15 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
               query benchmark's shape: 16 columns x 8,192 blocks, 2^-8
   3c. fused   K5 (encode_fused) against its plain version and against the
               K1 + K2 pipeline: the protocol, all-zero, all-one, clustered,
-              one block, an odd block count, a chunk base with a clamped
-              bound, 262,144 blocks (992 MB), and two launches in a row
+              one block, an odd block count, block counts around its tile
+              size and its persistent grid, a chunk base with a clamped
+              bound and with the bound inside a tile, every block past the
+              bound, 262,144 blocks (992 MB), ten and two launches in a row
   3d. scans   T1's kernel (rows_scan: the kernels' shared block scans and
               warp search) against torch.cumsum / cummax / searchsorted at
-              (4, 2048) and (32768, 2048), with ties in the search
+              (4, 2048) and (32768, 2048), with ties in the search; 1, 3 and
+              many rows, 0 to 300 keys, spans inside the row, mixed sign and
+              INT_MIN rows
   3e. hazards K1 and K4, whose CTAs walk several blocks, at block counts
               that are no multiple of their grids (1, 2, 263, 265, 32,767)
               with a bound that ends inside the last block; K4 with capacity
@@ -732,6 +736,45 @@ def phase_fused(cuda, errs, proto):
     sizes["clamped bound"] = check("chunk base, clamped bound", shard, nv, lo * 1024)
     sizes["bound inside"] = check("chunk base, bound inside", shard, (hi - lo // 2) * 1024 + 77, lo * 1024)
 
+    # block counts around the tile size B and the persistent grid: whatever
+    # the grid is (1 to 16 CTAs of 128 threads on each SM), one of these counts
+    # is one tile fewer and one of them one tile more than it holds
+    B = ek.FUSED_TILE_BLOCKS
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    around = sorted({1, B - 1, B, B + 1, 2 * B + 1, nb - 1}
+                    | {(sms * c + d) * B for c in range(1, 17) for d in (-1, 1)} - {0})
+    for n in around:
+        check(f"{n} blocks", proto["ints"][: n * 992].contiguous(), n * 1024 - 300)
+    sizes[f"{len(around)} counts around B = {B} and the grid"] = f"{around[0]}..{around[-1]}"
+    # every block past the bound: no word, every count 0
+    x = proto["ints"][: (2 * B + 1) * 992].contiguous()
+    if check("all blocks past the bound", x, 5 * 1024, 4 * B * 1024) != 0:
+        raise AssertionError("K5: blocks past the bound must emit nothing")
+    past = ek.encode_fused(x.view(-1, 992), torch.tensor([5 * 1024, 4 * B * 1024],
+                                                         dtype=torch.int32, device=cuda))[1]
+    ek.check_fused_error()
+    if past.any():
+        raise AssertionError("K5: blocks past the bound must count 0")
+    # a chunk base with the bound inside the second tile, then inside the last block
+    sizes["bound inside a tile"] = check("chunk base, bound inside a tile", x,
+                                         (2 + B + 1) * 1024 + 100, 2 * 1024)
+    check("chunk base, bound inside the last block", x, (2 + 2 * B) * 1024 + 5, 2 * 1024)
+
+    # ten launches back to back on one stream with different inputs, nothing
+    # read before the last
+    runs = []
+    for i in range(10):
+        n = (1, B + 1, 4097, 515, nb, 2 * B + 1, 33, nb // 2, B, 1000)[i]
+        x = (zeros if i == 7 else proto["ints"])[i * 992 : (i + n) * 992].contiguous()
+        runs.append((x, n * 1024 - 37 * i, ek.encode_padded_fused(x, n * 1024 - 37 * i)))
+    ek.check_fused_error()
+    for i, (x, n_valid, (w, tot)) in enumerate(runs):
+        w_p, tot_p = ek.encode_padded_fused_plain(x, n_valid)
+        if int(tot) != int(tot_p):
+            raise AssertionError(f"K5 ten in a row, launch {i}: total {int(tot)} != {int(tot_p)}")
+        err = max(err, exact(f"K5 ten in a row, launch {i}", w[: int(tot)], w_p[: int(tot)]))
+    del runs
+
     # two launches in a row on different inputs, nothing read between them
     w1, t1 = ek.encode_padded_fused(proto["ints"], nv)
     w2, t2 = ek.encode_padded_fused(zeros, nv)
@@ -765,8 +808,8 @@ def phase_fused(cuda, errs, proto):
     sizes[f"{big_nb} blocks"] = check("992 MB", big, golden.chunk_count(big.shape[0]),
                                       plain=plain_in_pieces)
     errs["encode_fused"] = err
-    print(f"[3c fused] K5 == plain and == K1 + K2, words[:total], total and counts bit-exact; "
-          f"two launches in a row ok; stream words {sizes}", flush=True)
+    print(f"[3c fused] K5 (tiles of {B} blocks) == plain and == K1 + K2, words[:total], total and "
+          f"counts bit-exact; ten and two launches in a row ok; stream words {sizes}", flush=True)
 
 
 def phase_scans(cuda, errs, main_path):
@@ -798,10 +841,47 @@ def phase_scans(cuda, errs, main_path):
     err = max(err, compare("(4, 2048)", scan_check.rows_scan(*small), *small))
     ties = case(SCAN_ROWS // 8, 2, SCAN_KEYS, 18)  # half the steps add 0: long ties
     err = max(err, compare("ties", scan_check.rows_scan(*ties), *ties))
+
+    def edge(name, x, q, lo=0, hi=2048, seed=19):
+        """x (numpy, non-negative over [lo, hi)) with q keys a row from
+        cumsum[lo] to past cumsum[hi - 1], a third of them exact ties."""
+        rng = np.random.default_rng(seed)
+        csum = np.cumsum(x, axis=1, dtype=np.int32).astype(np.int64)
+        keys = np.zeros((x.shape[0], 0), np.int64)
+        if q:
+            keys = rng.integers(csum[:, lo : lo + 1], csum[:, hi - 1 : hi] + 50, size=(x.shape[0], q))
+            picks = np.take_along_axis(csum[:, lo:hi], rng.integers(0, hi - lo, (x.shape[0], q)), 1)
+            keys[:, ::3] = picks[:, ::3]
+        xt, kt = torch.from_numpy(x).to(cuda), torch.from_numpy(keys.astype(np.int32)).to(cuda)
+        want = scan_check.rows_scan_plain(xt, kt, lo, hi)
+        return max(exact(f"T1 {name} {what}", g, w) for g, w, what in
+                   zip(scan_check.rows_scan(xt, kt, lo, hi), want, ("cumsum", "cummax", "search")))
+
+    rng = np.random.default_rng(23)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    edges = 0
+    for rows in (1, 3, 8 * sms + 1):
+        for q in (0, 1, SCAN_KEYS, 300):
+            xe = rng.integers(0, 100, size=(rows, 2048), dtype=np.int32)
+            err = max(err, edge(f"({rows}, 2048), {q} keys", xe, q),
+                      edge(f"({rows}, 2048), {q} keys, span [5, 1902)", xe, q, 5, 1902))
+            edges += 2
+    # mixed sign outside the searched span, INT_MIN rows (the sum wraps, the
+    # maximum stays), a row that starts at INT_MIN
+    xe = rng.integers(-1000, 1000, size=(37, 2048), dtype=np.int32)
+    xe[:, 700:1500] = np.abs(xe[:, 700:1500])
+    err = max(err, edge("mixed sign, span [700, 1500)", xe, SCAN_KEYS, 700, 1500),
+              edge("mixed sign, no keys", xe, 0))
+    lowest = np.full((5, 2048), np.iinfo(np.int32).min, np.int32)
+    err = max(err, edge("INT_MIN rows", lowest, 0))
+    lowest[:, 1:] = rng.integers(-5, 5, size=(5, 2047))
+    err = max(err, edge("rows that start at INT_MIN", lowest, 0))
+    edges += 4
     errs["rows_scan"] = err
     print(f"[3d scans] rows_scan == torch.cumsum / cummax / searchsorted at (4, 2048), "
-          f"({SCAN_ROWS}, 2048) with {SCAN_KEYS} keys a row, and ({SCAN_ROWS // 8}, 2048) of 0/1 "
-          f"steps (ties): bit-exact", flush=True)
+          f"({SCAN_ROWS}, 2048) with {SCAN_KEYS} keys a row, ({SCAN_ROWS // 8}, 2048) of 0/1 "
+          f"steps (ties), and {edges} edge cases (1, 3 and {8 * sms + 1} rows; 0, 1, {SCAN_KEYS} and "
+          f"300 keys; a span inside the row; mixed sign; INT_MIN): bit-exact", flush=True)
     return dict(x=x, keys=keys)
 
 
@@ -1206,8 +1286,8 @@ def phase_kernel_times(cuda, card, proto, query, scans, profile: bool = False):
 
         with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
-                for name in ("encode_tiles", "decode_blocks", "encode_fused", "encode pipeline",
-                             "decode pipeline"):
+                for name in ("encode_tiles", "decode_blocks", "encode_fused", "rows_scan",
+                             "encode pipeline", "decode pipeline"):
                     timed[name][0]()
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)

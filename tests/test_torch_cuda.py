@@ -9,8 +9,10 @@ end, K1's validity with the bound inside a block, a capacity-filling
 column beside an all-zero one; K6's
 offset ties, exact-tile, full and one-word totals; batched columns with a
 capacity-filling column and garbage tails; the logical pipeline; K5
-against its plain version, the K1 + K2 pipeline and golden, twice in a
-row on different inputs; T1's kernel with ties and odd search spans; the
+against its plain version, the K1 + K2 pipeline and golden, at block
+counts around its tile and its persistent grid, with every block past the
+bound, twice and ten times in a row on different inputs; T1's kernel with
+ties, odd search spans, key rows in rounds and negative values; the
 segment paths and the differential's quick matrix.
 Tolerance is zero (an integer codec). They skip without a CUDA device.
 The card's machine has no JAX, so run them there without the JAX
@@ -352,6 +354,77 @@ def test_encode_fused_shard_padding_emits_no_spurious_words(cuda):
     ek.check_fused_error()
 
 
+# K5 looks back over tiles of FUSED_TILE_BLOCKS blocks from a persistent grid
+# of c CTAs on each SM (c depends on the build: every c a 128-thread CTA
+# allows is tried). (c, d): d tiles more than c CTAs an SM hold; (0, n): n blocks
+TILE = ek.FUSED_TILE_BLOCKS
+FUSED_BLOCKS = [(0, n) for n in (TILE - 1, TILE, TILE + 1, 2 * TILE + 1, 7 * TILE + 2)] + [
+    (c, d) for c in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16) for d in (-1, 1)]
+
+
+def _ands(n_ints: int, ands: int, seed: int) -> np.ndarray:
+    """P(bit) = 2^-ands as the AND of uniform words (no byte-per-bit intermediate)."""
+    rng = np.random.default_rng(seed)
+    out = rng.integers(0, 1 << 32, size=n_ints, dtype=np.uint32)
+    for _ in range(ands - 1):
+        out &= rng.integers(0, 1 << 32, size=n_ints, dtype=np.uint32)
+    return out
+
+
+@pytest.mark.parametrize("c,d", FUSED_BLOCKS)
+def test_encode_fused_around_its_tile_and_grid(cuda, c, d):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_blocks = (sms * c + d) * TILE if c else d
+    data = _ands(n_blocks * BLOCK_INTS - 300, 4, n_blocks)  # ends inside the last block
+    padded, nv = _padded(data)
+    assert len(padded) == n_blocks * BLOCK_INTS
+    ints = words_to_tensor(padded, cuda)
+    words, total = ek.encode_padded_fused(ints, nv)
+    ek.check_fused_error()
+    words_2, total_2 = ek.encode_padded(ints, nv, stitch="v3")
+    t = int(total)
+    assert t == int(total_2) and torch.equal(words[:t], words_2[:t])
+    np.testing.assert_array_equal(tensor_to_words(words[:t]), golden.encode(data))
+    nv_t = torch.tensor([nv, 0], dtype=torch.int32, device=cuda)
+    _, counts = ek.encode_fused(ints.view(-1, BLOCK_INTS), nv_t)
+    assert torch.equal(counts, ek.encode_fused_plain(ints.view(-1, BLOCK_INTS), nv_t)[1])
+
+
+def test_encode_fused_blocks_past_the_bound_and_a_bound_inside_a_tile(cuda):
+    nb = 2 * TILE + 1
+    ints = words_to_tensor(_bitmap(nb * BLOCK_INTS, 1 / 16, 41), cuda)
+    # every block past the bound: no word, every count 0
+    base = 4 * TILE * BLOCK_CHUNKS
+    words, total = ek.encode_padded_fused(ints, 5 * BLOCK_CHUNKS, base)
+    nv_t = torch.tensor([5 * BLOCK_CHUNKS, base], dtype=torch.int32, device=cuda)
+    _, counts = ek.encode_fused(ints.view(nb, BLOCK_INTS), nv_t)
+    ek.check_fused_error()
+    assert int(total) == 0 and not counts.any()
+    # a chunk base, the bound inside the second tile and inside the last block
+    base = 2 * BLOCK_CHUNKS
+    for bound in (base + (TILE + 1) * BLOCK_CHUNKS + 100, base + 2 * TILE * BLOCK_CHUNKS + 5):
+        words, total = ek.encode_padded_fused(ints, bound, base)
+        ek.check_fused_error()
+        words_p, total_p = ek.encode_padded_fused_plain(ints, bound, base)
+        t = int(total)
+        assert t == int(total_p) and torch.equal(words[:t], words_p[:t])
+
+
+def test_encode_fused_ten_launches_in_a_row(cuda):
+    """Ten launches on one stream, each with a fresh workspace, nothing read
+    before the last."""
+    sizes = (1, TILE + 1, 4097, 515, 3000, 2 * TILE + 1, 33, 1500, TILE, 1000)
+    runs = []
+    for i, n in enumerate(sizes):
+        padded, nv = _padded(_ands(n * BLOCK_INTS - 37 * i, 2 + 3 * (i % 5), 50 + i))
+        x = words_to_tensor(padded, cuda)
+        runs.append((x, nv, ek.encode_padded_fused(x, nv)))
+    ek.check_fused_error()
+    for x, nv, (w, n) in runs:
+        w_p, n_p = ek.encode_padded_fused_plain(x, nv)
+        assert int(n) == int(n_p) and torch.equal(w[: int(n)], w_p[: int(n)])
+
+
 # K1 and K4 walk several blocks a CTA (K4 a contiguous range, K1 a stride of
 # its grid): block counts that no grid divides, the bitmap ending inside the
 # last block
@@ -483,6 +556,10 @@ SCANS = {
     "span_of_one": (2, 0, 100, 33, (77, 78)),
     "negative_maxima": (4, -50, -10, 0, (0, 2048)),  # cummax below zero; no search
     "many_rows": (3000, 0, 100, 5, (0, 2048)),
+    "one_row_one_key": (1, 0, 100, 1, (0, 2048)),
+    "three_rows_no_key": (3, 0, 100, 0, (0, 2048)),
+    "keys_in_rounds": (3, 0, 100, 300, (5, 1902)),  # more than the 256 keys a CTA holds at once
+    "one_row_past_a_wave": (1057, 0, 100, 64, (100, 2000)),
 }
 
 
@@ -503,6 +580,36 @@ def test_rows_scan_matches_plain(cuda, name):
     assert scan_check.rows_scan.launches == before + 1
     want = scan_check.rows_scan_plain(xt, kt, lo, hi)
     for g, w, what in zip(got, want, ("cumsum", "cummax", "search")):
+        assert torch.equal(g, w), what
+    np.testing.assert_array_equal(got[0].cpu().numpy(), csum)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), np.maximum.accumulate(x, axis=1))
+
+
+@pytest.mark.parametrize("name", ["mixed_sign_outside_the_span", "int_min_rows",
+                                  "rows_that_start_at_int_min"])
+def test_rows_scan_signs_match_plain(cuda, name):
+    """Negative values: the sum wraps in int32 as the flat scan does, the
+    running maximum starts from the row's first element, the search sees only
+    its span."""
+    rng = np.random.default_rng(29)
+    lo, hi, q = 0, 2048, 0
+    if name == "mixed_sign_outside_the_span":
+        x = rng.integers(-1000, 1000, size=(37, 2048), dtype=np.int32)
+        lo, hi, q = 700, 1500, 64
+        x[:, lo:hi] = np.abs(x[:, lo:hi])
+    else:
+        x = np.full((5, 2048), np.iinfo(np.int32).min, np.int32)
+        if name == "rows_that_start_at_int_min":
+            x[:, 1:] = rng.integers(-5, 5, size=(5, 2047))
+    csum = np.cumsum(x, axis=1, dtype=np.int32)
+    keys = np.zeros((x.shape[0], 0), np.int32)
+    if q:
+        keys = rng.integers(csum[:, lo : lo + 1], csum[:, hi - 1 : hi].astype(np.int64) + 50,
+                            size=(x.shape[0], q)).astype(np.int32)
+    xt, kt = torch.from_numpy(x).to(cuda), torch.from_numpy(keys).to(cuda)
+    got = scan_check.rows_scan(xt, kt, lo, hi)
+    for g, w, what in zip(got, scan_check.rows_scan_plain(xt, kt, lo, hi),
+                          ("cumsum", "cummax", "search")):
         assert torch.equal(g, w), what
     np.testing.assert_array_equal(got[0].cpu().numpy(), csum)
     np.testing.assert_array_equal(got[1].cpu().numpy(), np.maximum.accumulate(x, axis=1))

@@ -1,5 +1,6 @@
 // Shared definitions of the WAH kernels: format constants (copied from
-// wah_tpu_torch/constants.py), warp / block scans, the warp search, the
+// wah_tpu_torch/constants.py), the warp scans, the block scans of threads
+// that own several elements each, the warp search, the
 // asynchronous global -> shared copies (cp.async) and the grid sizing of the
 // kernels whose CTAs walk several blocks.
 #pragma once
@@ -87,41 +88,50 @@ __device__ __forceinline__ int warp_search_last_le(const int32_t* __restrict__ a
   return lo;
 }
 
-// Exclusive prefix sum over a block of exactly 1024 threads (32 warps).
-// `buf` is 33 ints of shared memory, free for this call; *total gets the
-// block's sum. Contains two __syncthreads(): every thread must call it.
-__device__ __forceinline__ int block_exclusive_scan_1024(int x, int* buf, int* total) {
-  const int lane = lane_id(), warp = threadIdx.x >> 5;
-  const int incl = warp_inclusive_scan(x);
-  if (lane == 31) buf[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int s = buf[lane];
-    const int si = warp_inclusive_scan(s);
-    buf[lane] = si - s;
-    if (lane == 31) buf[32] = si;
-  }
-  __syncthreads();
-  *total = buf[32];
-  return buf[warp] + incl - x;
+// Block scans over threads that each own several consecutive elements in
+// registers: K4's scan of its window's word counts and its forward fill
+// (decode.cu), and T1, which runs every one of them over whole rows
+// (scan_check.cu). A thread scans its own elements serially; the thread
+// totals are scanned across the warp (warp_inclusive_scan,
+// warp_exclusive_max); lane 31 stores the warp's total to shared memory, one
+// __syncthreads() publishes all of them, and every thread combines the warps
+// before its own itself:
+//   a thread's exclusive prefix = sum_of_warps_before + warp inclusive - own total.
+
+// In-place inclusive running maximum of a thread's own elements.
+template <int kPer>
+__device__ __forceinline__ void thread_inclusive_max(int (&v)[kPer]) {
+#pragma unroll
+  for (int i = 1; i < kPer; ++i) v[i] = max(v[i - 1], v[i]);
 }
 
-// Inclusive prefix maximum over a block of exactly 1024 threads (32 warps).
-// `buf` is 33 ints of shared memory, free for this call; *total gets the
-// block's maximum. Contains two __syncthreads(): every thread must call it.
-__device__ __forceinline__ int block_inclusive_max_1024(int x, int* buf, int* total) {
-  const int lane = lane_id(), warp = threadIdx.x >> 5;
-  const int incl = warp_inclusive_max(x);
-  if (lane == 31) buf[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int mi = warp_inclusive_max(buf[lane]);
-    buf[lane] = mi;
-    if (lane == 31) buf[32] = mi;
-  }
-  __syncthreads();
-  *total = buf[32];
-  return warp == 0 ? incl : max(buf[warp - 1], incl);
+// Exclusive prefix maximum across the 32 lanes of a warp: the maximum of the
+// lanes below, `identity` in lane 0.
+__device__ __forceinline__ int warp_exclusive_max(int x, int identity) {
+  const int left = __shfl_up_sync(kFullMask, warp_inclusive_max(x), 1);
+  return lane_id() == 0 ? identity : left;
+}
+
+// The sum (maximum) of the totals of the warps before this thread's, in a
+// block of kWarps warps. Call after the barrier that publishes
+// warp_totals[0 .. kWarps - 1).
+template <int kWarps>
+__device__ __forceinline__ int sum_of_warps_before(const int* warp_totals) {
+  const int warp = threadIdx.x >> 5;
+  int before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps - 1; ++w)
+    if (w < warp) before += warp_totals[w];
+  return before;
+}
+template <int kWarps>
+__device__ __forceinline__ int max_of_warps_before(const int* warp_totals, int identity) {
+  const int warp = threadIdx.x >> 5;
+  int before = identity;
+#pragma unroll
+  for (int w = 0; w < kWarps - 1; ++w)
+    if (w < warp) before = max(before, warp_totals[w]);
+  return before;
 }
 
 // Host side: *ctas gets how many CTAs of `kernel` (with `threads` threads and

@@ -45,7 +45,8 @@
 //   * The window (9 granules, 16 B-aligned) of block bo+1 is copied into the
 //     other half of a two-stage ring by cp.async while block bo is expanded.
 //   * One scan over the window's word counts (8 words a thread, a warp scan,
-//     5 warp sums) gives each word's first chunk. Each word that starts
+//     5 warp sums: the block scan of common.cuh, which T1 checks) gives each
+//     word's first chunk. Each word that starts
 //     inside the block writes its index at its start's slot, and each word
 //     that reaches over the first slot of one of the 4 output warps'
 //     256-slot spans writes its index there; a forward fill by a warp-wide
@@ -225,10 +226,7 @@ decode_blocks_kernel(const uint32_t* __restrict__ words_t, const int32_t* __rest
       // 3. each word's first chunk relative to the block (the sums fit int32
       //    for a valid stream; they wrap harmlessly past a batch's end), its
       //    slot, and the output spans it reaches into from before
-      int before = 0;
-#pragma unroll
-      for (int i = 0; i < kWinWarps - 1; ++i)
-        if (i < warp) before += s_warp_sum[i];
+      const int before = sum_of_warps_before<kWinWarps>(s_warp_sum);
       int rel = (int)((uint32_t)cur_off0 - base + (uint32_t)(before + incl - sum));
 #pragma unroll
       for (int i = 0; i < kW; ++i) {
@@ -259,10 +257,8 @@ decode_blocks_kernel(const uint32_t* __restrict__ words_t, const int32_t* __rest
           r[0] = max(r[0], s_cover[warp]);
           s_cover[warp] = 0;  // for the next block
         }
-#pragma unroll
-        for (int i = 1; i < kW; ++i) r[i] = max(r[i - 1], r[i]);
-        int left = __shfl_up_sync(kFullMask, warp_inclusive_max(r[kW - 1]), 1);
-        if (lane == 0) left = 0;
+        thread_inclusive_max(r);
+        const int left = warp_exclusive_max(r[kW - 1], 0);
         // 5. expand (fill -> 0 or 0x7FFFFFFF, literal -> payload), mask by
         //    n_chunks: the block's valid chunks are its first n_chunks -
         //    (base & pos_mask), of which this thread keeps n_keep of its kW

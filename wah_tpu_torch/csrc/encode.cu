@@ -33,6 +33,7 @@ __global__ void __launch_bounds__(kEncodeThreads)
 encode_tiles_kernel(const uint32_t* __restrict__ ints, const int32_t* __restrict__ nv,
                     uint4* __restrict__ staging, int32_t* __restrict__ counts, int nb) {
   __shared__ __align__(16) EncodeShared s;
+  __shared__ __align__(16) uint32_t s_row[kBlockChunks];  // the block's staging row
   const int bound = nv[0], base = nv[1], pos_mask = nv[2];
   const int step = gridDim.x;
   int b = blockIdx.x;
@@ -41,10 +42,10 @@ encode_tiles_kernel(const uint32_t* __restrict__ ints, const int32_t* __restrict
     if (b + step < nb) copy_block_ints(s, stage ^ 1, ints, b + step);
     else cp_async_commit();  // an empty group, so that the wait below counts the same
     cp_async_wait<1>();
-    const int count = encode_block(s, stage, b, bound, base, pos_mask);
+    const int count = encode_block(s, stage, s_row, b, bound, base, pos_mask);
 #pragma unroll
     for (int v = threadIdx.x; v < kBlockChunks / 4; v += kEncodeThreads)
-      staging[(size_t)b * (kBlockChunks / 4) + v] = ((const uint4*)s.row)[v];
+      staging[(size_t)b * (kBlockChunks / 4) + v] = ((const uint4*)s_row)[v];
     if (threadIdx.x == 0) counts[b] = count;
   }
 }

@@ -23,9 +23,11 @@
 //     its own: the next set bit of its ballot, else the warp's later
 //     ballots, else the first start of a later warp, else the valid end.
 //   * Each start writes its word to its slot of a 4 KB row in shared
-//     memory and chunks at or past the count write zeros, so the row is
-//     the block's staging row: dense words, zeros after. The caller stores
-//     it as 256 uint4 (K1) or as out[prefix .. prefix + count) (K5).
+//     memory, which the caller provides, and chunks at or past the count
+//     write zeros, so the row is the block's staging row: dense words, zeros
+//     after. K1 stores it as 256 uint4; K5 lays the rows of a tile of blocks
+//     end to end (each row starts where the words of the one before end) and
+//     stores the tile as out[prefix .. prefix + the tile's count).
 // Two __syncthreads() of four warps a block. (The first version: 1,024
 // threads a block, one chunk each, four barriers of 32 warps, the types and
 // the start positions through shared memory, a scattered 4 B store a word.)
@@ -46,7 +48,6 @@ constexpr int kNoStart = kBlockChunks;              // "no start here": past eve
 struct EncodeShared {
   // [stage][warp]: the warp's ints, then at [kWarpInts] the int before them
   uint32_t ints[2][kEncodeWarps][kWarpStride];
-  uint32_t row[kBlockChunks];  // the block's words, dense, zeros after
   // per warp: run starts | valid chunks << 16, and its first start's chunk
   int warp_info[kEncodeWarps], warp_first[kEncodeWarps];
 };
@@ -68,10 +69,12 @@ __device__ __forceinline__ void copy_block_ints(EncodeShared& s, int stage,
 // Encode block b from the ints in `stage`, whose copy this thread has waited
 // for (cp_async_wait). Chunk k is valid when ((base + 1024 b + k) & pos_mask)
 // < bound; invalid chunks start no word. Returns the block's word count and
-// leaves the words in s.row, readable by every thread. All threads of
-// the CTA must call it (it holds two __syncthreads(), the second at its end).
-__device__ __forceinline__ int encode_block(EncodeShared& s, int stage, int b, int bound,
-                                            int base, int pos_mask) {
+// leaves the words in `row` (1,024 words of shared memory: the count's words,
+// then zeros), readable by every thread. All threads of the CTA must call it
+// (it holds two __syncthreads(), the second at its end); nothing is written
+// to `row` before the first.
+__device__ __forceinline__ int encode_block(EncodeShared& s, int stage, uint32_t* row, int b,
+                                            int bound, int base, int pos_mask) {
   const int lane = lane_id(), warp = threadIdx.x >> 5;
   const uint32_t lanes_below = (1u << lane) - 1u;
   __syncwarp();  // the warp's copies have all been waited for
@@ -146,9 +149,9 @@ __device__ __forceinline__ int encode_block(EncodeShared& s, int stage, int b, i
         const int next = above ? c - lane + __ffs(above) - 1 : next_group[i];
         word = (((ones[i] >> lane) & 1u) ? kBit3130 : kBit31) | (uint32_t)(next - c);
       }
-      s.row[slot + __popc(starts[i] & lanes_below)] = word;
+      row[slot + __popc(starts[i] & lanes_below)] = word;
     }
-    if (c >= count) s.row[c] = 0u;
+    if (c >= count) row[c] = 0u;
     slot += __popc(starts[i]);
   }
   __syncthreads();

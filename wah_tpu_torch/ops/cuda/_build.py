@@ -39,7 +39,7 @@ _N = ctypes.c_int
 # C entry -> argument types; every entry ends with the stream
 _SIGNATURES = {
     "wah_encode_tiles": [_P, _P, _P, _P, _N, _P],
-    "wah_encode_fused": [_P, _P, _P, _P, _P, _N, _P],
+    "wah_encode_fused": [_P, _P, _P, _P, _P, _N, _N, _P],
     "wah_stitch_tiles": [_P, _P, _P, _P, _N, _P],
     "wah_stitch_gather": [_P, _P, _P, _N, _P],
     "wah_prescan_words": [_P, _P, _P, _P, _N, _N, _P],

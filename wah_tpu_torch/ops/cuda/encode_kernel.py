@@ -17,7 +17,9 @@ K6; `encode_rows_batch` the same over batched columns (K1 with a
 per-column position mask, K2 with per-row counts). `encode_fused` (K5)
 is the whole single-stream pipeline in one kernel
 (wah_tpu_torch/csrc/encode_fused.cu: no staging array, the scan of the
-counts done inside the kernel by a decoupled look-back), and
+counts done inside the kernel by a decoupled look-back over tiles of
+FUSED_TILE_BLOCKS blocks, a tile's look-back deferred behind the encode
+of its CTA's next tile), and
 `encode_padded_fused` its `encode_padded`; as in wah_tpu the codec never
 selects it, it is an independent implementation to check the pipeline
 against. Each `_plain` twin runs the same pipeline through the plain
@@ -51,6 +53,8 @@ __all__ = [
 ]
 
 _IDENTITY_MASK = 0x7FFFFFFF
+# blocks to a tile of K5's look-back: kTileBlocks of csrc/encode_fused.cu
+FUSED_TILE_BLOCKS = 3
 
 
 def _nv3(nv: torch.Tensor) -> torch.Tensor:
@@ -214,7 +218,7 @@ def encode_fused_plain(
 
 def _fused(ints2d: torch.Tensor, nv: torch.Tensor):
     """encode_fused and the total as a 0-dim int32 tensor on the same device
-    (no host sync): the last block's inclusive prefix, read from the kernel's
+    (no host sync): the last tile's inclusive prefix, a view of the kernel's
     workspace, or on the CPU the sum of the counts."""
     check(ints2d, "ints2d", (None, BLOCK_INTS))
     check(nv, "nv", (2,))
@@ -229,16 +233,20 @@ def _fused(ints2d: torch.Tensor, nv: torch.Tensor):
         return words, counts, counts.sum(dtype=torch.int32)
     from ._build import launch
 
-    # 64-bit words: the ticket, the error flag, one descriptor per block;
-    # zeroed on the launch's stream, so a launch never meets a stale one
-    ws = torch.zeros(nb + 2, dtype=torch.int64, device=dev)
+    # 64-bit words, seen as int32 pairs (low half first): the ticket, the
+    # error flag, one descriptor per tile of FUSED_TILE_BLOCKS blocks; zeroed
+    # on the launch's stream, so a launch never meets a stale one. The flag
+    # and the total (the low half of the last tile's descriptor, its
+    # inclusive prefix) are views: no kernel beside K5 and the zeroing.
+    n_tiles = -(-nb // FUSED_TILE_BLOCKS)
+    ws = torch.zeros(2 * (n_tiles + 2), dtype=torch.int32, device=dev)
     launch(
         "wah_encode_fused", dev, ints2d.data_ptr(), nv.data_ptr(), words.data_ptr(),
-        counts.data_ptr(), ws.data_ptr(), nb,
+        counts.data_ptr(), ws.data_ptr(), nb, n_tiles + 2,
     )
     encode_fused.launches += 1
-    encode_fused.error = ws[1]
-    return words, counts, (ws[nb + 1] & 0xFFFFFFFF).to(torch.int32)
+    encode_fused.error = ws[2]
+    return words, counts, ws[2 * (n_tiles + 1)]
 
 
 def encode_fused(

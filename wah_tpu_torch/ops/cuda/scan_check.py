@@ -2,11 +2,13 @@
 counterpart of the test-local Pallas kernel of tests/test_pallas.py
 (test_wide_scans_match_flat).
 
-`rows_scan` runs the device functions of wah_tpu_torch/csrc/common.cuh
-(the block sum- and max-scans and the 32-way warp search that K1, K4, K5
-and K6 share) over whole rows: CUDA kernel wah_tpu_torch/csrc/scan_check.cu
-for a CUDA tensor, `rows_scan_plain` (torch.cumsum, torch.cummax,
-torch.searchsorted) for a CPU tensor.
+`rows_scan` runs the scan and search functions of
+wah_tpu_torch/csrc/common.cuh over whole rows: the block scans of threads
+that own several elements each (sum and running maximum: K4's scan of its
+window and its forward fill, decode.cu) and the 32-way warp search (K4's
+and K6's). CUDA kernel wah_tpu_torch/csrc/scan_check.cu for a CUDA tensor,
+`rows_scan_plain` (torch.cumsum, torch.cummax, torch.searchsorted) for a
+CPU tensor. K1 and K5 scan by ballots and share none of these.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from ._args import check, on_cpu
 
 __all__ = ["rows_scan", "rows_scan_plain", "ROW_LEN"]
 
-ROW_LEN = 2048  # two passes of a 1024-thread CTA
+ROW_LEN = 2048  # a CTA of 256 threads, 8 elements each, takes a row in one pass
 
 
 def _span(lo: int, hi: int | None) -> tuple[int, int]:
@@ -52,6 +54,8 @@ def rows_scan(
     lo, hi = _span(lo, hi)
     if on_cpu(x, keys):
         return rows_scan_plain(x, keys, lo, hi)
+    if x.data_ptr() % 16:
+        raise ValueError("x: the kernel loads 16 B vectors; pass a 16 B-aligned tensor")
     csum, cmax = torch.empty_like(x), torch.empty_like(x)
     idx = torch.empty_like(keys)
     if x.shape[0]:
