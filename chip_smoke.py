@@ -53,8 +53,19 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
   4e. differential  wah_tpu_torch.differential.run on the card, full matrix
   4f. cli     python3 -m wah_tpu_torch compress / info / decompress / logical
               as subprocesses on temporary files, outputs against numpy
-  5. counts   every kernel of each main path (phases 3d, 4, 4b-4e) launched
-              in that path's own run
+  4g. sharded wah_tpu_torch.parallel: ShardedCodec("cuda") in a one-rank
+              NCCL group on the protocol (== golden) and on BASELINE.json
+              configs[4] (2,000,000,000 ints, 64e9 bits, P(bit) = 0.01; ==
+              the golden streams of its pieces), both round-tripped; `python
+              -m wah_tpu_torch.parallel 2 --device cuda` (two gloo ranks on
+              one card, gathers staged through host memory) on the dry-run
+              bitmap and the protocol; the bodies of 8 ranks at 12 and 263
+              blocks a rank (== golden, spans == the input); the gathered
+              payload bytes at 2^-4 and 2^-8 (== benchmarks/scaling_model.json),
+              a word_cap that overflows and its exact retry; stitch_global's
+              CUDA-event ms and ShardedCodec's host-clock ms beside WahCodec's
+  5. counts   every kernel of each main path (phases 3d, 4, 4b-4e, 4g)
+              launched in that path's own run
   6. times    CUDA-event milliseconds of each kernel and pipeline against
               the plain versions: the 130 MB protocol, K6 against K2 on
               two stagings, the query folds; K1 and K4 also on the query
@@ -107,6 +118,15 @@ BATCH_COLUMNS, BATCH_COLUMN_INTS, BATCH_SEGMENT_INTS = 128, 31_250_000, 992 << 1
 BATCH_POOL, BATCH_DENSITY = 4, 0.01
 SCAN_ROWS, SCAN_KEYS = 32768, 64  # T1 at full width: 268 MB of int32 rows
 CLI_INTS = 1_000_000  # 4 MB files for the CLI phase
+# BASELINE.json configs[4], "a 64e9-bit bitmap sharded ... ordered gather,
+# bit-exact stitched output": 2e9 ints (2,016,130 blocks, just under the
+# 2^31 - 1 chunk cap of one call) at P(bit) = 0.01, made of CONFIG4_POOL
+# distinct pieces of PROTOCOL_BLOCKS blocks and a partial last piece
+CONFIG4_INTS, CONFIG4_DENSITY, CONFIG4_POOL = 2_000_000_000, 0.01, 4
+# shard shapes that are no multiple of K1's or K4's walk (tests/test_dist.py:141)
+SHARD_RANKS, SHARD_BLOCKS = 8, (12, 263)
+# the stitch payloads of benchmarks/scaling_model.py: 32,768 blocks, seed 1337
+PAYLOAD_BLOCKS, PAYLOAD_EVERY_N = 32768, (16, 256)
 
 # Published peaks of one H100 SXM: 3.35 TB/s of HBM3, 67 T 32-bit
 # operations a second outside the tensor cores
@@ -158,6 +178,28 @@ def bernoulli_bitmap(n_ints: int, density: float, seed: int) -> np.ndarray:
     # the positions are distinct, so the sum of their bit values is their OR
     words = np.bincount(pos >> 5, weights=(1 << (pos & 31)).astype(np.float64), minlength=n_ints)
     return words.astype(np.uint32)
+
+
+def generate_random_data(n_ints: int, every_n: int, seed: int = 1337) -> np.ndarray:
+    """Bernoulli bitmap with P(bit set) = 1/every_n (reference
+    generateRandomData, tests.cpp:42-64, fixed seed 1337).
+
+    Generated in slabs: the naive (n, 32) int64 draw would need ~66 GB
+    for the 992 MB sweep config. PCG64 consumes its bit stream value by
+    value, so slab-wise draws produce the identical bitmap (pinned by
+    tests/test_report.py)."""
+    rng = np.random.default_rng(seed)
+    out = np.empty(n_ints, dtype=np.uint32)
+    slab = 1 << 21
+    for lo in range(0, n_ints, slab):
+        hi = min(lo + slab, n_ints)
+        bits = rng.integers(0, every_n, size=(hi - lo, 32), dtype=np.int64) == 0
+        out[lo:hi] = (
+            np.packbits(bits.astype(np.uint8), axis=1, bitorder="little")
+            .view(np.uint32)
+            .reshape(-1)
+        )
+    return out
 
 
 def mask_bitmap(mask: np.ndarray) -> np.ndarray:
@@ -356,6 +398,8 @@ def run(cuda, kernels_only: bool = False, profile: bool = False) -> None:
         phase_differential(cuda, main_path)
     with Phase("4f cli"):
         phase_cli()
+    with Phase("4g sharded"):
+        phase_sharded(cuda, card, proto, main_path)
 
     # 5. launch counts of the main paths
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
@@ -1087,7 +1131,7 @@ def phase_differential(cuda, main_path):
                                         "decode_blocks", "encode_fused"],
                        lambda: differential.run(cuda))
     print(f"[4e differential] {differential.summary_line(report)}", flush=True)
-    if report["summary"]["failed"] or report["summary"]["total_cases"] != 25:
+    if report["summary"]["failed"] or report["summary"]["total_cases"] != 26:
         raise AssertionError(f"differential: {report['summary']}")
 
 
@@ -1135,6 +1179,206 @@ def phase_cli():
     print(f"[4f cli] compress, info, decompress ({len(odd)} B file) and a 3-way logical or "
           f"({CLI_INTS * 4} B files) as subprocesses on the default device: files == numpy; "
           f"{info.strip()}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_sharded(cuda, card, proto, main_path):
+    """4g. The sharded codec (wah_tpu_torch.parallel) on the card."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from wah_tpu_torch import WahCodec, golden
+    from wah_tpu_torch.convert import tensor_to_words, words_to_tensor
+    from wah_tpu_torch.parallel import (ShardedCodec, decode_local, encode_local, encode_sharded,
+                                        estimate_word_cap, multihost, stitch_global, stitch_word_cap)
+    from wah_tpu_torch.parallel._comm import all_gather
+
+    four = ["encode_tiles", "stitch_tiles_v2", "prescan_words", "decode_blocks"]
+    data, g = proto["data"], proto["golden"]
+    n = data.shape[0]
+    root = Path(__file__).resolve().parent
+
+    # configs[4]'s bitmap and its reference stream, from the golden streams
+    # of its distinct pieces (no fill crosses a block edge)
+    t0 = time.perf_counter()
+    piece = PROTOCOL_BLOCKS * 992
+    n_full, rest = divmod(CONFIG4_INTS, piece)
+    pool = [bernoulli_bitmap(piece, CONFIG4_DENSITY, SEED + 40 + i) for i in range(CONFIG4_POOL)]
+    big = np.concatenate([pool[i % CONFIG4_POOL] for i in range(n_full)]
+                         + [pool[n_full % CONFIG4_POOL][:rest]])
+    pool_golden = [golden.encode(p) for p in pool]
+    big_golden = np.concatenate([pool_golden[i % CONFIG4_POOL] for i in range(n_full)]
+                                + [golden.encode(pool[n_full % CONFIG4_POOL][:rest])])
+    del pool_golden
+    print(f"[4g sharded] configs[4]: {big.shape[0]} ints ({big.shape[0] * 32 / 1e9:.0f}e9 bits, "
+          f"{golden.chunk_count(big.shape[0])} chunks, {-(-golden.chunk_count(big.shape[0]) // 1024)} "
+          f"blocks) from {CONFIG4_POOL} distinct pieces of {PROTOCOL_BLOCKS} blocks, reference "
+          f"{big_golden.shape[0]} words; set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a) and (b): one NCCL rank through the API
+    if not dist.is_nccl_available():
+        raise AssertionError("torch.distributed has no NCCL here")
+    backend = multihost.choose_backend(1, "cuda")
+    if backend != "nccl":
+        raise AssertionError(f"one rank on a card must take NCCL, the rule gave {backend}")
+    print(f"[4g sharded] backend {backend} for a world of 1 (multihost.choose_backend: every rank "
+          f"has a card of its own; under a group every gather is NCCL's, even at one rank)",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="wah_smoke_")
+    if cuda.index is not None:
+        torch.cuda.set_device(cuda)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+                            timeout=multihost.TIMEOUT)
+    try:
+        group = multihost.global_group()
+        codec = ShardedCodec(cuda, group)
+        times = {}
+
+        def drive():
+            out = {}
+            for name, x in (("protocol", data), ("configs[4]", big)):
+                t0 = time.perf_counter()
+                stream = codec.compress(x)
+                t1 = time.perf_counter()
+                back = codec.decompress(stream, out_ints=x.shape[0])
+                times[name] = (t1 - t0, time.perf_counter() - t1)
+                out[name] = stream, back
+            return out
+
+        torch.cuda.reset_peak_memory_stats(cuda)
+        routes = dict(all_gather.routes)
+        got = main_path("distribution", four, drive)
+        peak = torch.cuda.max_memory_allocated(cuda)
+        # the totals, the stream and the bitmap of each of the two bitmaps
+        route = "device" if cuda.type == "cuda" else "host"
+        if all_gather.routes != {**routes, route: routes[route] + 6}:
+            raise AssertionError(f"gathers by route {all_gather.routes}, before {routes}: want 6 "
+                                 f"of route {route}")
+        print(f"[4g sharded] 6 all_gathers of route {route} (NCCL on the card): the totals, the "
+              f"stream and the bitmap of each", flush=True)
+        for name, x, want in (("protocol", data, g), ("configs[4]", big, big_golden)):
+            stream, back = got[name]
+            same_stream(f"sharded {name}", stream, want)
+            if not np.array_equal(back, x):
+                raise AssertionError(f"sharded {name}: no round trip")
+            print(f"[4g sharded] ShardedCodec at world size 1 (NCCL), {name}: {x.shape[0]} ints -> "
+                  f"{stream.shape[0]} words == golden in full, round trip ok; host clock compress "
+                  f"{times[name][0]:.3f} s, decompress {times[name][1]:.3f} s on {card}", flush=True)
+        print(f"[4g sharded] peak device memory of the two {peak / 1e9:.1f} GB", flush=True)
+        del got, big, big_golden, pool
+
+        # (f) times at D = 1: stitch_global on the protocol, bounded and not
+        # (CUDA events); the API against WahCodec's (host clock, W S S W)
+        nv = golden.chunk_count(n)
+        words_l, totals = encode_sharded(words_to_tensor(data, cuda), nv, group)
+        cap_w = stitch_word_cap(totals)
+        st = {label: min(cuda_ms(lambda: stitch_global(words_l, totals, wc, group), 20)
+                         for _ in range(2))
+              for label, wc in (("bounded", cap_w), ("unbounded", None))}
+        wcodec = WahCodec(cuda)
+
+        def host_s(fn, reps=3):
+            best = float("inf")
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                best = min(best, time.perf_counter() - t0)
+            return best
+
+        api = {}
+        for label, c, comp in (("WahCodec", wcodec, lambda: wcodec.compress(data)),
+                               ("ShardedCodec", codec, lambda: codec.compress(data)),
+                               ("ShardedCodec again", codec, lambda: codec.compress(data)),
+                               ("WahCodec again", wcodec, lambda: wcodec.compress(data))):
+            api[label] = (host_s(comp), host_s(lambda: c.decompress(g, out_ints=n)))
+        print(f"[4g sharded] stitch_global at world size 1 on the protocol ({int(totals[0])} words "
+              f"of {words_l.shape[0]}): bounded by stitch_word_cap ({cap_w} words) "
+              f"{st['bounded']:.4f} ms, unbounded {st['unbounded']:.4f} ms (CUDA events) on {card}",
+              flush=True)
+        print(f"[4g sharded] 130 MB protocol through the API, host clock, best of 3, s "
+              f"(compress, decompress): "
+              f"{ {k: (round(a, 4), round(b, 4)) for k, (a, b) in api.items()} } on {card}", flush=True)
+        del words_l
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) two gloo ranks on one card, as subprocesses: the dry run and the protocol
+    with tempfile.TemporaryDirectory() as tdir:
+        case = Path(tdir) / "protocol.npz"
+        np.savez(case, data=data, stream=g)
+        (out,) = run_all([[sys.executable, "-m", "wah_tpu_torch.parallel", "2", "--device", "cuda",
+                           "--check", str(case), "--timeout", "240"]], root, timeout=300)
+    if "backend gloo (gathers staged through host memory)" not in out or "2 ranks: ok" not in out:
+        raise AssertionError(f"two ranks on one card:\n{out}")
+    for line in out.splitlines():
+        print(f"[4g sharded] 2 ranks on cuda:0: {line.replace(str(case), 'protocol')}", flush=True)
+
+    # (d) the bodies of SHARD_RANKS ranks, one after another, at block counts
+    # a rank that are no multiple of K1's or K4's walk
+    for nb_l in SHARD_BLOCKS:
+        nb = SHARD_RANKS * nb_l
+        x = sparse_bitmap(nb * 992, seed=SEED + nb_l, ands=1)
+        x[np.random.default_rng(nb_l).random(x.shape[0]) < 0.5] = 0
+        x[2 * 992 : 5 * 992] = 0  # fills inside rank 0
+        x[-3 * 992 :] = 0xFFFFFFFF  # a one-fill tail on the last rank
+        nv = golden.chunk_count(x.shape[0])
+        ints = words_to_tensor(x, cuda)
+        L = nb_l * 992
+        parts = []
+        for r in range(SHARD_RANKS):
+            w, t = encode_local(ints[r * L : (r + 1) * L], nv, r)
+            parts.append(tensor_to_words(w[: int(t)]))
+        want = golden.encode(x)
+        same_stream(f"{SHARD_RANKS} ranks of {nb_l} blocks", np.concatenate(parts), want)
+        stream = words_to_tensor(np.concatenate([want, np.zeros(-want.shape[0] % 1024, np.uint32)]),
+                                 cuda)
+        spans = [decode_local(stream, want.shape[0], nb_l * 1024, r)[0] for r in range(SHARD_RANKS)]
+        if not np.array_equal(tensor_to_words(torch.cat(spans)), x):
+            raise AssertionError(f"{SHARD_RANKS} ranks of {nb_l} blocks: the spans differ from the input")
+        # spans of a warp less than the blocks: cut out of the covering blocks' decode
+        off = nb_l * 1024 - 32
+        spans = [decode_local(stream, want.shape[0], off, r)[0] for r in range(-(-nv // off))]
+        if not np.array_equal(tensor_to_words(torch.cat(spans))[: x.shape[0]], x):
+            raise AssertionError(f"spans of {off} chunks differ from the input")
+        print(f"[4g sharded] {SHARD_RANKS} rank bodies of {nb_l} blocks: per-rank totals "
+              f"{[p.shape[0] for p in parts]}, concatenation == golden, spans == the input, "
+              f"also in spans of {off} chunks off the blocks", flush=True)
+
+    # (e) the gathered payload at D = 1 (word counts the format fixes) against
+    # benchmarks/scaling_model.json, and a word_cap that bites
+    want = json.loads((root / "benchmarks" / "scaling_model.json").read_text())[
+        "tpu_v5e_1chip"]["stitch_payloads"]
+    nb = PAYLOAD_BLOCKS
+    for every_n in PAYLOAD_EVERY_N:
+        d = generate_random_data(nb * 992, every_n)
+        words_l, totals = encode_sharded(words_to_tensor(d, cuda), golden.chunk_count(d.shape[0]))
+        got = {"compressed_bytes": int(totals.sum()) * 4, "capacity_bytes": words_l.shape[0] * 4,
+               "allgather_bytes_per_chip_exact_cap": stitch_word_cap(totals) * 4,
+               "allgather_bytes_per_chip_estimate_cap": estimate_word_cap(d, nb) * 4}
+        key = f"2^-{every_n.bit_length() - 1}"
+        ref = {k: want[key][k] for k in got}
+        if got != ref:
+            raise AssertionError(f"payload bytes at {key}: {got} != scaling_model.json {ref}")
+        print(f"[4g sharded] payload at world size 1, {nb} blocks, P(bit) = {key}: {got} "
+              f"== benchmarks/scaling_model.json", flush=True)
+        if every_n == PAYLOAD_EVERY_N[-1]:
+            total = int(totals.sum())
+            bite = stitch_word_cap(totals) - 1024
+            stream, tot, overflow = stitch_global(words_l, totals, bite)
+            if not bool(overflow) or int(tot) != total or stream.shape[0] != bite:
+                raise AssertionError(f"word_cap {bite}: overflow {bool(overflow)}, total {int(tot)}")
+            stream, tot, overflow = stitch_global(words_l, totals)
+            if bool(overflow) or int(tot) != total:
+                raise AssertionError("the unbounded retry overflowed")
+            same_stream(f"retry at {key}", tensor_to_words(stream[:total]), golden.encode(d))
+            if stream[total:].any():
+                raise AssertionError("the retry's stream is not zero past its total")
+            print(f"[4g sharded] word_cap {bite} < {total} live words at {key}: overflow raised, "
+                  f"total right; the unbounded retry == golden", flush=True)
+        del words_l
 
 
 def phase_kernel_times(cuda, card, proto, query, scans, profile: bool = False):

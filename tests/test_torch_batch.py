@@ -160,10 +160,15 @@ def test_decode_rows_batch_full_capacity_matches_pallas(order):
 
 
 def test_decode_rows_batch_refuses_int32_overflow():
+    """Only one column past the int32 positions is refused (columns that
+    pass them together go in groups)."""
     words = torch.zeros(4 * BLOCK_CHUNKS, dtype=torch.int32)
     ms = torch.ones(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
-        dk.decode_rows_batch(words, 4, ms, 1 << 30)
+        dk.decode_rows_batch(words, 4, ms, 1 << 31)
+    with pytest.MonkeyPatch.context() as mp, pytest.raises(ValueError, match="int32"):
+        mp.setattr(dk, "INT32_CHUNKS", 2 * BLOCK_CHUNKS)
+        dk.decode_rows_batch_plain(words, 4, ms, 4 * BLOCK_CHUNKS)
     with pytest.raises(ValueError, match="power of two"):
         dk.decode_rows_batch(words, 4, ms, 3 * BLOCK_CHUNKS)
     with pytest.raises(ValueError, match="power of two"):
@@ -249,3 +254,78 @@ def test_codec_batch_empty_and_invalid(codecs):
     assert words.shape == (3, 0) and totals.tolist() == [0, 0, 0]
     with pytest.raises(ValueError, match="literal-fill"):
         tcodec.decompress_batch(np.array([[0x80000001, 0]], np.uint32), np.array([2]))
+
+
+# -- the batched decode goes in groups of columns whose positions fit
+# the limit (INT32_CHUNKS, lowered here), as the batched encode does
+
+GROUP_NB = 4  # blocks a column: a capacity of 4,096 chunks
+
+
+def _group_columns() -> np.ndarray:
+    """Five columns of mixed content, the last block partial."""
+    n = GROUP_NB * BLOCK_INTS - 50
+    return np.stack([
+        random_bitmap(n, 1 / 64, seed=71), np.zeros(n, np.uint32), _uniform_words(n, 72)[:n],
+        clustered_bitmap(n, seed=73), np.full(n, 0xFFFFFFFF, np.uint32),
+    ])
+
+
+def _count_groups(monkeypatch) -> list:
+    calls = []
+    group = dk._decode_column_group
+
+    def counted(words_flat, C, *args):
+        calls.append(C)
+        return group(words_flat, C, *args)
+
+    monkeypatch.setattr(dk, "_decode_column_group", counted)
+    return calls
+
+
+@pytest.mark.parametrize("columns_a_group", [1, 2, 3])
+@pytest.mark.parametrize("fn", [dk.decode_rows_batch_plain, dk.decode_rows_batch],
+                         ids=["plain", "wrapper"])
+def test_decode_rows_batch_in_groups_matches_one_group_and_golden(monkeypatch, fn, columns_a_group):
+    cols = _group_columns()
+    C, n = cols.shape
+    streams = [golden.encode(c) for c in cols]
+    ms = np.array([len(s) for s in streams], np.int32)
+    Mcap = -(-int(ms.max()) // BLOCK_CHUNKS) * BLOCK_CHUNKS
+    rng = np.random.default_rng(8)  # garbage past each stream, as a stitch tail leaves
+    w2 = rng.integers(0, 2**32, size=(C, Mcap), dtype=np.uint64).astype(np.uint32)
+    for i, s in enumerate(streams):
+        w2[i, : len(s)] = s
+    cap = GROUP_NB * BLOCK_CHUNKS
+    words, tms = words_to_tensor(w2.reshape(-1), "cpu"), torch.from_numpy(ms)
+    one = fn(words, C, tms, cap)
+    calls = _count_groups(monkeypatch)
+    monkeypatch.setattr(dk, "INT32_CHUNKS", columns_a_group * cap + cap // 2)
+    grouped = fn(words, C, tms, cap)
+    assert calls == [columns_a_group] * (C // columns_a_group) + ([C % columns_a_group] if C % columns_a_group else [])
+    assert torch.equal(grouped, one)
+    out = tensor_to_words(grouped).reshape(C, -1)
+    for c in range(C):
+        np.testing.assert_array_equal(out[c, :n], cols[c])
+
+
+@pytest.mark.parametrize("path", ["decompress_batch", "logical_many"])
+def test_codec_across_a_lowered_position_limit(monkeypatch, path):
+    """The API used to raise once C * cap passed the limit; with the
+    limit lowered to two columns the batched decode runs in groups and
+    the API returns what golden gives."""
+    codec = wah_tpu_torch.WahCodec("cpu")
+    cols = _group_columns()
+    C, n = cols.shape
+    words, totals = codec.compress_batch(cols)
+    cap = GROUP_NB * BLOCK_CHUNKS
+    monkeypatch.setattr(dk, "INT32_CHUNKS", 2 * cap)
+    calls = _count_groups(monkeypatch)
+    if path == "decompress_batch":
+        np.testing.assert_array_equal(codec.decompress_batch(words, totals, out_ints=n), cols)
+        assert calls == [2, 2, 1]
+    else:
+        streams = [words[c, : totals[c]] for c in range(C)]
+        got = codec.logical_many(streams, "or", n)
+        np.testing.assert_array_equal(got, golden.encode(np.bitwise_or.reduce(cols)))
+        assert calls == [2, 2, 2, 2]  # 5 streams padded to 8 with identity streams

@@ -13,7 +13,10 @@ against its plain version, the K1 + K2 pipeline and golden, at block
 counts around its tile and its persistent grid, with every block past the
 bound, twice and ten times in a row on different inputs; T1's kernel with
 ties, odd search spans, key rows in rounds and negative values; the
-segment paths and the differential's quick matrix.
+segment paths and the differential's quick matrix; the sharded codec's K2
+compaction of a gathered payload at edge totals, the per-rank decode from
+a chunk base, the bodies of eight ranks, and ShardedCodec("cuda") at a
+world of one.
 Tolerance is zero (an integer codec). They skip without a CUDA device.
 The card's machine has no JAX, so run them there without the JAX
 conftest:
@@ -31,6 +34,7 @@ from wah_tpu_torch.ops.cuda import decode_kernel as dk
 from wah_tpu_torch.ops.cuda import encode_kernel as ek
 from wah_tpu_torch.ops import logical
 from wah_tpu_torch.ops.cuda import scan_check, stitch2
+from test_torch_dist_cases import COMPACT_TOTALS, compact_case
 
 pytestmark = pytest.mark.cuda
 
@@ -637,3 +641,80 @@ def test_differential_quick_on_cuda(cuda):
     report = differential.run(cuda, quick=True)
     assert report["summary"]["failed"] == 0 and report["card"]
     assert ek.encode_fused.launches == before + 6
+
+
+# -- the sharded codec (wah_tpu_torch.parallel) ------------------------------
+
+@pytest.mark.parametrize("name", COMPACT_TOTALS)
+def test_compact_payload_matches_plain(cuda, name):
+    """stitch_global's compaction (K2 over the (D, eff) payload) == the same
+    function on CPU tensors (the plain K2) == numpy, at totals 0, 1,023,
+    1,024, eff and past it."""
+    from wah_tpu_torch.parallel import compact_payload
+
+    segs, totals, want = compact_case(name)
+    flat = words_to_tensor(segs.reshape(-1), "cpu").view(segs.shape)
+    before = stitch2.stitch_tiles_v2.launches
+    got = compact_payload(flat.to(cuda), torch.from_numpy(totals).to(cuda))
+    assert stitch2.stitch_tiles_v2.launches == before + 1
+    plain = compact_payload(flat, torch.from_numpy(totals))
+    assert torch.equal(got.cpu(), plain)
+    np.testing.assert_array_equal(tensor_to_words(got), want)
+
+
+@pytest.mark.parametrize("chunks_l,rank", [(3 * BLOCK_CHUNKS, 0), (3 * BLOCK_CHUNKS, 2),
+                                           (2 * BLOCK_CHUNKS, 4), (992, 3)])
+def test_decode_local_from_a_chunk_base_matches_plain(cuda, chunks_l, rank):
+    """decode_local on the card runs K3 + K4 over the blocks that cover the
+    span, whether or not the span is block-aligned (992 chunks from chunk
+    2976 is not), and == the same call on CPU tensors (the plain K3 + K4)
+    == numpy."""
+    from wah_tpu_torch.parallel import decode_local
+
+    data = _bitmap(9 * BLOCK_INTS + 77, 1 / 64, 81)
+    ref = golden.encode(data)
+    stream = np.concatenate([ref, np.zeros(-len(ref) % BLOCK_CHUNKS, np.uint32)])
+    before = (dk.prescan_words.launches, dk.decode_blocks.launches)
+    got, n = decode_local(words_to_tensor(stream, cuda), len(ref), chunks_l, rank)
+    assert (dk.prescan_words.launches, dk.decode_blocks.launches) == (before[0] + 1, before[1] + 1)
+    want, n_p = decode_local(words_to_tensor(stream, "cpu"), len(ref), chunks_l, rank)
+    assert int(n) == int(n_p) == golden.chunk_count(len(data))
+    assert torch.equal(got.cpu(), want)
+    lo = rank * chunks_l // 32 * 31
+    full = np.concatenate([data, np.zeros(chunks_l * 8, np.uint32)])
+    np.testing.assert_array_equal(tensor_to_words(got), full[lo : lo + chunks_l // 32 * 31])
+
+
+@pytest.mark.parametrize("nb_l", [1, 12, 33])
+def test_eight_rank_bodies_on_cuda_match_golden(cuda, nb_l):
+    from wah_tpu_torch.parallel import decode_local, encode_local
+
+    D = 8
+    data = _bitmap(D * nb_l * BLOCK_INTS, 0.02, 82)
+    data[2 * BLOCK_INTS : 3 * BLOCK_INTS] = 0
+    data[-BLOCK_INTS:] = 0xFFFFFFFF
+    nv = golden.chunk_count(len(data))
+    ints = words_to_tensor(data, cuda)
+    L = nb_l * BLOCK_INTS
+    parts = []
+    for r in range(D):
+        w, t = encode_local(ints[r * L : (r + 1) * L], nv, r)
+        parts.append(tensor_to_words(w[: int(t)]))
+    ref = golden.encode(data)
+    np.testing.assert_array_equal(np.concatenate(parts), ref)
+    stream = words_to_tensor(np.concatenate([ref, np.zeros(-len(ref) % BLOCK_CHUNKS, np.uint32)]), cuda)
+    spans = [decode_local(stream, len(ref), nb_l * BLOCK_CHUNKS, r)[0] for r in range(D)]
+    np.testing.assert_array_equal(tensor_to_words(torch.cat(spans)), data)
+
+
+@pytest.mark.parametrize("name", BITMAPS)
+def test_sharded_codec_world_of_one_on_cuda(cuda, name):
+    from wah_tpu_torch.parallel import ShardedCodec
+
+    data = BITMAPS[name]()
+    codec = ShardedCodec(cuda)
+    before = dk.decode_blocks.launches
+    stream = codec.compress(data)
+    np.testing.assert_array_equal(stream, golden.encode(data))
+    np.testing.assert_array_equal(codec.decompress(stream, out_ints=len(data)), data)
+    assert dk.decode_blocks.launches == before + 1

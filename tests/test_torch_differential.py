@@ -20,8 +20,8 @@ def report():
 def test_quick_run_every_section_ok(report):
     assert report["summary"]["failed"] == 0
     names = [c["case"] for c in report["cases"]]
-    assert names[-3:] == ["batch_6cols", "logical_ops", "batch_segments"]
-    assert report["summary"]["total_cases"] == len(names) == 6 + 3
+    assert names[-4:] == ["batch_6cols", "logical_ops", "batch_segments", "sharded_1dev_mesh"]
+    assert report["summary"]["total_cases"] == len(names) == 6 + 4
     for case in report["cases"]:
         checks = {k: v for k, v in case.items() if isinstance(v, bool)}
         assert case["ok"] and all(checks.values()), case
@@ -29,11 +29,19 @@ def test_quick_run_every_section_ok(report):
         assert {"api_enc", "api_dec", "fused", "native"} <= set(case)
 
 
-def test_sharded_section_is_marked_not_ported(report):
-    assert "sharded_1dev_mesh" not in [c["case"] for c in report["cases"]]
-    assert report["sections"]["sharded_1dev_mesh"].startswith("not ported")
-    assert report["summary"]["not_ported"] == ["sharded_1dev_mesh"]
-    assert "not ported: sharded_1dev_mesh" in differential.summary_line(report)
+def test_sharded_section_runs_every_check(report):
+    """tests/tpu_differential.py's sharded section: three bitmaps, each
+    encoded equal to golden and round-tripped, under a gloo group of one
+    rank that the run brought up and tore down."""
+    import torch.distributed as dist
+
+    (case,) = [c for c in report["cases"] if c["case"] == "sharded_1dev_mesh"]
+    checks = {k: v for k, v in case.items() if isinstance(v, bool) and k != "ok"}
+    assert sorted(checks) == sorted(f"{d}_{s}" for d in ("enc", "dec")
+                                    for s in ("sparse", "dense", "clustered"))
+    assert case["ok"] and all(checks.values())
+    assert not dist.is_initialized()
+    assert "not ported" not in json.dumps(report)
 
 
 def test_cpu_report_never_names_a_card(report):

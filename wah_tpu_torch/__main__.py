@@ -101,13 +101,10 @@ def main(argv=None) -> None:
         return
 
     if args.cmd == "info":
-        from .api import validate_stream
-        from .constants import BIT31, LEN_MASK
+        from .api import checked_stream, stream_chunks
 
         stream, original_bytes = _read_wah(args.input)
-        validate_stream(stream)
-        is_fill = (stream & np.uint32(BIT31)) != 0
-        chunks = int(np.where(is_fill, stream & np.uint32(LEN_MASK), 1).sum(dtype=np.int64))
+        chunks = stream_chunks(checked_stream(stream))
         print(f"{args.input}: {stream.size} words, {chunks} chunks, "
               f"original {original_bytes} bytes, "
               f"ratio {stream.nbytes / max(original_bytes, 1):.4f}")

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import native
 from .constants import BIT31, BLOCK_CHUNKS, BLOCK_INTS, LEN_MASK, ONES31
 from .convert import tensor_to_words, words_to_tensor
 from .golden import chunk_count
@@ -27,7 +28,9 @@ from .ops import logical as _lops
 from .ops.cuda import decode_kernel, encode_kernel
 from .utils.timing import PhaseTimer, PhaseTimings
 
-__all__ = ["WahCodec", "compress", "decompress", "validate_stream", "checked_stream"]
+__all__ = [
+    "WahCodec", "compress", "decompress", "validate_stream", "checked_stream", "stream_chunks",
+]
 
 # Chunk positions are int32 in the kernels: one bitmap is capped at
 # 2^31 - 1 chunks (~8.3 GB).
@@ -78,10 +81,25 @@ def validate_stream(words: np.ndarray) -> None:
 
 
 def checked_stream(words: np.ndarray) -> np.ndarray:
-    """ascontiguousarray(uint32) + validate_stream."""
+    """ascontiguousarray(uint32) + validation: the C++ host codec's check
+    when it is built (native.validate, the same messages), validate_stream
+    otherwise (wah_tpu.api.checked_stream)."""
     words = np.ascontiguousarray(words, dtype=np.uint32)
-    validate_stream(words)
+    if native.available():
+        native.validate(words)
+    else:
+        validate_stream(words)
     return words
+
+
+def stream_chunks(words: np.ndarray) -> int:
+    """The number of chunks a validated stream expands to: fills count
+    their run length, literals 1 (native.decoded_chunks when the host codec
+    is built, numpy otherwise)."""
+    if native.available():
+        return native.decoded_chunks(words)
+    is_fill = (words & np.uint32(BIT31)) != 0
+    return int(np.where(is_fill, words & np.uint32(LEN_MASK), 1).sum(dtype=np.int64))
 
 
 class WahCodec:
@@ -132,8 +150,7 @@ class WahCodec:
         m = words.shape[0]
         if m == 0:
             return np.zeros(0, dtype=np.uint32), PhaseTimings()
-        is_fill = (words & np.uint32(BIT31)) != 0
-        n_chunks = int(np.where(is_fill, words & np.uint32(LEN_MASK), 1).sum())
+        n_chunks = stream_chunks(words)
         cap = max(1, -(-n_chunks // BLOCK_CHUNKS)) * BLOCK_CHUNKS
         M = -(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS
         if M != m:

@@ -13,7 +13,9 @@ Sections:
   batch_6cols        compress_batch / decompress_batch
   logical_ops        compressed-domain and/or/xor/andnot, k-way folds (3, 13, 16)
   batch_segments     compress_batch_segments / decompress_batch_segments
-  sharded_1dev_mesh  not ported (distribution): recorded as such, never as ok
+  sharded_1dev_mesh  parallel.ShardedCodec under a real process group of one
+                     rank: NCCL on a card, gloo on the CPU (brought up and
+                     torn down here unless a group is already up)
 
     python -m wah_tpu_torch.differential [--out GPU_DIFF.json] [--quick] [--device cuda]
 
@@ -25,8 +27,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,8 +41,6 @@ from .api import WahCodec
 from .constants import BLOCK_CHUNKS, BLOCK_INTS
 from .convert import tensor_to_words, words_to_tensor
 from .ops.cuda import encode_kernel
-
-NOT_PORTED = {"sharded_1dev_mesh": "not ported: distribution (wah_tpu.parallel) has no counterpart yet"}
 
 
 def _bernoulli(n, density, seed):
@@ -144,7 +146,6 @@ def run(device="cuda", quick: bool = False) -> dict:
         "card": _card_line() if on_card else None,
         "torch": torch.__version__,
         "cases": [],
-        "sections": dict(NOT_PORTED),
     }
     fails = 0
 
@@ -243,21 +244,58 @@ def run(device="cuda", quick: bool = False) -> dict:
     record("batch_segments", {"seg_enc": bool(seg_enc_ok),
                               "seg_dec": bool(np.array_equal(seg_out, segcols))})
 
+    # ---- sharded codec, one rank of a real process group ----------------
+    record("sharded_1dev_mesh", _sharded_checks(device))
+
     n_cases = len(report["cases"])
     report["summary"] = {
         "total_cases": n_cases,
         "failed": fails,
-        "not_ported": sorted(NOT_PORTED),
         "elapsed_s": round(time.time() - t0, 1),
     }
     return report
 
 
+def _sharded_checks(device: torch.device) -> dict:
+    """tests/tpu_differential.py's sharded section: ShardedCodec on three
+    16-block bitmaps, stream == golden and round trip. Runs under the
+    group that is up, else under one of world size 1 that it brings up
+    (NCCL on a CUDA device, gloo on the CPU) and tears down."""
+    import torch.distributed as dist
+
+    from .parallel import ShardedCodec, multihost
+
+    tmp = None
+    if not dist.is_initialized():
+        tmp = tempfile.mkdtemp(prefix="wah_diff_")
+        if device.type == "cuda" and device.index is not None:
+            torch.cuda.set_device(device)  # NCCL runs on the current device
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+                                timeout=multihost.TIMEOUT)
+    try:
+        codec = ShardedCodec(device, multihost.global_group())
+        checks = {}
+        for sname, sdata in [
+            ("sparse", _bernoulli(16 * BLOCK_INTS, 2.0**-8, 40)),
+            ("dense", _bernoulli(16 * BLOCK_INTS, 0.5, 41)),
+            ("clustered", _clustered(16 * BLOCK_INTS, 42, 1.3)),
+        ]:
+            stream = codec.compress(sdata)
+            checks[f"enc_{sname}"] = bool(np.array_equal(stream, golden.encode(sdata)))
+            checks[f"dec_{sname}"] = bool(np.array_equal(
+                codec.decompress(stream, out_ints=len(sdata)), sdata))
+    finally:
+        if tmp is not None:
+            dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+    return checks
+
+
 def summary_line(report: dict) -> str:
     s = report["summary"]
     return (f"{s['total_cases'] - s['failed']}/{s['total_cases']} differential cases bit-exact "
-            f"({s['elapsed_s']} s) on {report['card'] or report['device']}; "
-            f"not ported: {', '.join(s['not_ported'])}")
+            f"({s['elapsed_s']} s) on {report['card'] or report['device']}")
 
 
 def main(argv=None) -> None:

@@ -34,6 +34,7 @@ __all__ = [
     "decode_blocks",
     "decode_blocks_plain",
     "decode",
+    "decode_span",
     "decode_plain",
     "decode_batch",
     "decode_rows_batch",
@@ -42,6 +43,7 @@ __all__ = [
 
 GRANULE = 128  # words per granule of the offset tables
 _I64 = torch.int64
+INT32_CHUNKS = (1 << 31) - 1  # chunk positions are int32 in K3 and K4
 
 
 def _check_prescan(words, vc, out_rows):
@@ -157,6 +159,7 @@ decode_blocks.launches = 0
 
 
 def _decode(words, m: int, chunk_capacity: int, chunk_base: int, prescan, blocks):
+    """The decode pipeline -> (ints, n_chunks int32 0-dim of the whole stream)."""
     if chunk_capacity % BLOCK_CHUNKS:
         raise ValueError(f"chunk_capacity must be a multiple of 1024, got {chunk_capacity}")
     M = words.shape[0]
@@ -173,8 +176,16 @@ def _decode(words, m: int, chunk_capacity: int, chunk_base: int, prescan, blocks
         [n_chunks, torch.tensor([m, chunk_base, 0x7FFFFFFF], dtype=torch.int32, device=dev)]
     )
     ints = blocks(words_t, g_incl - g_sums, meta, chunk_capacity // BLOCK_CHUNKS)
-    n_chunks = n_chunks[0]
-    return ints.reshape(-1), n_chunks - n_chunks // 32
+    return ints.reshape(-1), n_chunks[0]
+
+
+def decode_span(
+    words: torch.Tensor, m: int, chunk_capacity: int, chunk_base: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """decode, returning the chunk count of the whole stream (int32 0-dim)
+    in place of n_ints: the sharded decode's per-rank body, whose span
+    does not tell the stream's length."""
+    return _decode(words, m, chunk_capacity, chunk_base, prescan_words, decode_blocks)
 
 
 def decode(
@@ -185,20 +196,23 @@ def decode(
     chunk_base (block-aligned) decodes the span [chunk_base, chunk_base +
     chunk_capacity) instead. n_ints = ceil(31 n_chunks / 32) of the whole
     stream, computed as n - n//32 so that it cannot wrap int32."""
-    return _decode(words, m, chunk_capacity, chunk_base, prescan_words, decode_blocks)
+    ints, n = decode_span(words, m, chunk_capacity, chunk_base)
+    return ints, n - n // 32
 
 
 def decode_plain(
     words: torch.Tensor, m: int, chunk_capacity: int, chunk_base: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """decode through the plain versions, on any device."""
-    return _decode(
+    ints, n = _decode(
         words, m, chunk_capacity, chunk_base, prescan_words_plain, decode_blocks_plain
     )
+    return ints, n - n // 32
 
 
 def _decode_rows_batch(words_flat, C: int, ms, col_chunk_capacity: int, prescan, blocks):
     cap = col_chunk_capacity
+    limit = INT32_CHUNKS  # read at each call
     check(words_flat, "words_flat", (None,))
     check(ms, "ms", (C,))
     total = words_flat.shape[0]
@@ -206,10 +220,26 @@ def _decode_rows_batch(words_flat, C: int, ms, col_chunk_capacity: int, prescan,
         raise ValueError(f"{total} words do not split into {C} columns of whole 1024-word tiles")
     if cap < BLOCK_CHUNKS or cap & (cap - 1):
         raise ValueError(f"col_chunk_capacity must be a power of two >= 1024, got {cap}")
-    if C * cap > (1 << 31) - 1:
+    if cap > limit:
         raise ValueError(
-            f"{C} columns x {cap} chunks exceed the int32 chunk positions; decode fewer columns"
+            f"one column of {cap} chunks exceeds the {limit} int32 chunk positions "
+            "of one decode; split the columns into segments"
         )
+    G = min(C, limit // cap)  # columns per group (int32 positions)
+    if G == C:
+        return _decode_column_group(words_flat, C, ms, cap, prescan, blocks)
+    Mcap = total // C
+    parts = []
+    for c0 in range(0, C, G):
+        c1 = min(c0 + G, C)
+        parts.append(_decode_column_group(
+            words_flat[c0 * Mcap : c1 * Mcap], c1 - c0, ms[c0:c1], cap, prescan, blocks))
+    return torch.cat(parts)
+
+
+def _decode_column_group(words_flat, C: int, ms, cap: int, prescan, blocks):
+    """One batched decode of C columns whose C * cap positions fit int32."""
+    total = words_flat.shape[0]
     gpc = total // C // GRANULE  # granules per column; none straddles two columns
     rel = GRANULE * torch.arange(gpc, dtype=torch.int32, device=words_flat.device)
     vc = (ms[:, None] - rel[None, :]).clamp(0, GRANULE).reshape(-1)
@@ -237,7 +267,10 @@ def decode_rows_batch(
     counts; the granule sums are rebased to the column bases c*cap; K4
     decodes all C*cap/1024 blocks with pos_mask = cap - 1, so the zeroed
     tail words (counted as literals in its window) land at positions the
-    mask kills. Raises ValueError when C*cap exceeds int32 positions.
+    mask kills. The columns go in groups of at most INT32_CHUNKS // cap
+    columns, which keeps chunk positions within int32 (as
+    encode_rows_batch's group_rows does); raises ValueError when one column
+    alone exceeds INT32_CHUNKS.
     """
     return _decode_rows_batch(
         words_flat, C, ms, col_chunk_capacity, prescan_words, decode_blocks
