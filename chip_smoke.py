@@ -74,20 +74,31 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
               beside torch.masked_select; each kernel's bound from this
               run's bytes; host-clock seconds of the index build, of Q6
               and of the segment paths through the API
+  6b. profiling  wah_tpu_torch.utils.profiling on the protocol: K1-K4 and
+              the encode and decode pipelines timed by amortized_seconds
+              (one call captured in a CUDA graph, replayed K times) beside
+              phase 6's eager CUDA-event ms and the host's time to issue
+              one eager call, each replayed output == the eager one word
+              for word; one WahCodec() compress and
+              decompress traced by profiling.trace: the device-busy share
+              of the traced window and the five device operations that took
+              the most time; steps that a capture must refuse (a host read)
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed. The second-to-last line is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 
 For work on a kernel, `python3 chip_smoke.py --kernels [--profile]` runs
-only phases 1-3e and the kernel and pipeline times of phase 6 (about a
-minute) and prints no result lines; `--profile` adds torch.profiler's
-per-kernel device times over a few launches. To time another tree of the
+only phases 1-3e and the kernel and pipeline times of phases 6 and 6b
+(about a minute) and prints no result lines; `--profile` adds
+torch.profiler's per-kernel device times over a few launches, taken
+through profiling.trace. To time another tree of the
 port in the same call (two versions compare only within one call, on one
 card), copy this script into that tree and run it there.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import resource
 import subprocess
@@ -291,6 +302,22 @@ def cuda_ms(fn, iters: int) -> float:
     return ev0.elapsed_time(ev1) / iters
 
 
+def host_issue_ms(fn, iters: int) -> float:
+    """Host-clock milliseconds to issue one fn() (its launches queued, not
+    run): the mean of `iters` calls after one warm-up, read before the
+    device is waited for. An eager time near this is bound by the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
 def main() -> None:
     import argparse
 
@@ -383,6 +410,8 @@ def run(cuda, kernels_only: bool = False, profile: bool = False) -> None:
         with Phase("6 times"):
             ms, _ = phase_kernel_times(cuda, card, proto, query, scans, profile)
         print_bounds(card, ms, kernel_bounds(proto, scans))
+        with Phase("6b profiling"):
+            phase_profiling(cuda, card, proto, ms)
         return
     with Phase("4 codec"):
         ratio, proto["golden"] = main_path(
@@ -411,6 +440,8 @@ def run(cuda, kernels_only: bool = False, profile: bool = False) -> None:
     print(f"[6 times] compression ratio (words / ints): {ratio}")
     bounds = kernel_bounds(proto, scans)
     print_bounds(card, ms, bounds)
+    with Phase("6b profiling"):
+        phase_profiling(cuda, card, proto, ms)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1526,16 +1557,108 @@ def phase_kernel_times(cuda, card, proto, query, scans, profile: bool = False):
               f"{ms[name][0]:.4f} ms on {card}", flush=True)
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as profiler
+        from wah_tpu_torch.utils import profiling
 
-        with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                for name in ("encode_tiles", "decode_blocks", "encode_fused", "rows_scan",
-                             "encode pipeline", "decode pipeline"):
-                    timed[name][0]()
-            torch.cuda.synchronize()
-        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
+        with tempfile.TemporaryDirectory() as logdir:
+            with profiling.trace(logdir) as t:
+                for _ in range(5):
+                    for name in ("encode_tiles", "decode_blocks", "encode_fused", "rows_scan",
+                                 "encode pipeline", "decode pipeline"):
+                        timed[name][0]()
+        print(t.profiler.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
     return ms, library_ms
+
+
+def phase_profiling(cuda, card, proto, ms):
+    """6b. wah_tpu_torch.utils.profiling on the protocol: graph-replayed
+    times beside phase 6's eager ones, one traced API round trip, and the
+    steps a capture must refuse."""
+    import torch
+
+    from wah_tpu_torch import WahCodec, golden
+    from wah_tpu_torch.convert import tensor_to_words
+    from wah_tpu_torch.ops.cuda import decode_kernel as dk
+    from wah_tpu_torch.ops.cuda import encode_kernel as ek
+    from wah_tpu_torch.ops.cuda import stitch2
+    from wah_tpu_torch.utils import profiling
+
+    p = proto
+    nv_count = golden.chunk_count(PROTOCOL_BLOCKS * 992)
+    cap = p["nbo"] * 1024
+    total = p["m"]
+    # name -> (step, args, the eager output's words to hold the replay to)
+    steps = {
+        "encode_tiles": (ek.encode_tiles, (p["ints2d"], p["nv"]), lambda o: torch.cat(
+            [o[0].reshape(-1), o[1].reshape(-1)])),
+        "stitch_tiles_v2": (stitch2.stitch_tiles_v2, (p["staging"], p["offsets_ext"]),
+                            lambda o: o[:total]),
+        "prescan_words": (dk.prescan_words, (p["stream"], p["vc"], p["rows"]),
+                          lambda o: torch.cat([o[0].reshape(-1), o[1]])),
+        "decode_blocks": (dk.decode_blocks, (p["words_t"], p["g_base"], p["meta"], p["nbo"]),
+                          lambda o: o.reshape(-1)),
+        "encode pipeline": (lambda ints: ek.encode_padded(ints, nv_count, stitch="v3"),
+                            (p["ints"],), lambda o: torch.cat([o[0][: int(o[1])], o[1].view(1)])),
+        "decode pipeline": (lambda words: dk.decode(words, total, cap), (p["stream"],),
+                            lambda o: torch.cat([o[0], o[1].view(1)])),
+    }
+    graphs = {}
+    for name, (step, args, words_of) in steps.items():
+        s = profiling.amortized_seconds(step, *args, cache=graphs, cache_key=name)
+        replayed = words_of(graphs[name].out)
+        eager = words_of(step(*args))
+        exact(f"6b {name}: replayed output against eager", replayed, eager)
+        eager_ms, issue_ms = ms[name][0], host_issue_ms(lambda: step(*args), 20)
+        print(f"[6b profiling] {name}: graph-replayed {s * 1e3:.4f} ms (amortized_seconds), eager "
+              f"{eager_ms:.4f} ms (cuda_ms, phase 6), replayed / eager {s * 1e3 / eager_ms:.3f}; "
+              f"the host issues one eager call in {issue_ms:.4f} ms; replay == eager "
+              f"({replayed.numel()} words) on {card}", flush=True)
+    del graphs
+
+    # one API round trip on the default device, traced after an untraced one
+    # (the first call builds the host codec and warms the allocator)
+    codec = WahCodec()
+    want = tensor_to_words(p["stream"][:total])
+    for traced in (False, True):
+        with tempfile.TemporaryDirectory() as logdir:
+            with (profiling.trace(logdir) if traced else contextlib.nullcontext()) as t:
+                t0 = time.perf_counter()
+                stream, _ = codec.compress(p["data"])
+                back, _ = codec.decompress(stream, out_ints=len(p["data"]))
+                wall = time.perf_counter() - t0
+            if traced:
+                act = profiling.device_activity(t)
+    same_stream("6b traced compress", stream, want)
+    if not np.array_equal(back, p["data"]):
+        raise AssertionError("6b traced decompress differs from the input")
+    print(f"[6b profiling] traced WahCodec() compress + decompress of the protocol: window "
+          f"{act['window_us'] / 1e3:.3f} ms (host clock {wall * 1e3:.3f} ms), device busy "
+          f"{act['busy_us'] / 1e3:.3f} ms = {act['busy_share']:.2%} of the window on {card}",
+          flush=True)
+    if not act["ops"]:  # WahCodec() with no device must run on the card
+        raise AssertionError("6b: the trace holds no device operation")
+    for i, (name, us, n) in enumerate(act["ops"][:5], 1):
+        print(f"[6b profiling]   top {i}: {us / 1e3:.4f} ms in {n} x {name[:90]} on {card}", flush=True)
+
+    # steps a capture must refuse: a host read of a device value
+    probes = {
+        "encode_padded(stitch='auto'), its host read of the total": (
+            lambda ints: ek.encode_padded(ints, nv_count, stitch="auto"), (p["ints"],), True),
+        "torch.tensor([...], device=cuda), a copy from pageable memory": (
+            lambda ints: torch.tensor([1, 2], dtype=torch.int32, device=ints.device), (p["ints"],),
+            False),
+    }
+    for name, (step, args, must_refuse) in probes.items():
+        try:
+            profiling.capture(step, *args)
+            verdict = "captured"
+        except RuntimeError as e:
+            verdict = f"refused: {str(e).splitlines()[0][:160]}"
+        print(f"[6b profiling] capture of {name}: {verdict}", flush=True)
+        if must_refuse and verdict == "captured":
+            raise AssertionError(f"6b: a capture of {name} must raise")
+    # the card still runs after the refused captures
+    staging, counts = ek.encode_tiles(p["ints2d"], p["nv"])
+    exact("6b K1 after the refused captures", staging, p["staging"])
 
 
 def phase_host_times(cuda, card, index_times, segment_times):

@@ -158,3 +158,126 @@ def test_ctypes_signature_matches_the_c_entry(entry):
     assert sorted(declared) == sorted(_build._SIGNATURES)
     assert [kinds[p] for p in declared[entry]] == _build._SIGNATURES[entry]
     assert declared[entry][-1] == "void*"
+
+
+# -- entry points: wah_tpu's signatures, on the card by default ------------
+
+def _params(fn):
+    import inspect
+
+    return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()
+            if p.name not in ("self", "cls")]
+
+
+_NO_DEVICE = object()
+
+
+def _signature_pairs():
+    import wah_tpu.index
+    import wah_tpu.parallel
+    import wah_tpu_torch.parallel
+
+    J, T = wah_tpu, wah_tpu_torch
+    jbi, tbi = wah_tpu.index.BitmapIndex, wah_tpu_torch.BitmapIndex
+    # name: (wah_tpu's, the port's, the port's name for a wah_tpu
+    # parameter, wah_tpu parameters not ported, the port's device default,
+    # or _NO_DEVICE where it has no device parameter)
+    return {
+        "compress": (J.compress, T.compress, {}, (), "cuda"),
+        "decompress": (J.decompress, T.decompress, {}, (), "cuda"),
+        # kernel= picks XLA or Pallas on a TPU; the port has one kernel set
+        "WahCodec": (J.WahCodec.__init__, T.WahCodec.__init__, {}, ("kernel",), "cuda"),
+        "BitmapIndex": (jbi.__init__, tbi.__init__, {}, (), _NO_DEVICE),
+        "BitmapIndex.build": (jbi.build, tbi.build, {}, (), _NO_DEVICE),
+        # a process group takes the place of the device mesh
+        "ShardedCodec": (wah_tpu.parallel.ShardedCodec.__init__,
+                         wah_tpu_torch.parallel.ShardedCodec.__init__, {"mesh": "group"}, (),
+                         None),
+    }
+
+
+@pytest.mark.parametrize("name", list(_signature_pairs()))
+def test_entry_point_signatures_match_jax(name):
+    jfn, tfn, renamed, dropped, device_default = _signature_pairs()[name]
+    want = [(renamed.get(n, n), d) for n, d in _params(jfn) if n not in dropped]
+    got = _params(tfn)
+    if device_default is not _NO_DEVICE:  # the port's extra parameter
+        assert ("device", device_default) in got
+    assert [p for p in got if p[0] != "device"] == want
+
+
+NO_CARD = 'pass device="cpu"'
+
+
+def _no_card(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_wah_codec_defaults_to_the_card_and_never_falls_back(monkeypatch):
+    from wah_tpu_torch.index import BitmapIndex
+
+    _no_card(monkeypatch)
+    x = np.arange(50, dtype=np.uint32)
+    stream = golden.encode(x)
+    calls = {
+        "WahCodec()": lambda: wah_tpu_torch.WahCodec(),
+        "compress(x)": lambda: wah_tpu_torch.compress(x),
+        "decompress(w)": lambda: wah_tpu_torch.decompress(stream),
+        "BitmapIndex.build(v)": lambda: BitmapIndex.build(np.arange(40) % 3),
+        "BitmapIndex(streams, n)": lambda: BitmapIndex([stream], 40),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=NO_CARD):
+            call()
+
+
+def test_sharded_codec_defaults_to_the_ranks_card(monkeypatch):
+    import wah_tpu_torch.parallel as tpar
+
+    _no_card(monkeypatch)
+    for call in (lambda: tpar.ShardedCodec(), lambda: tpar.ShardedCodec(group=None),
+                 lambda: tpar.ShardedCodec("cuda:0")):
+        with pytest.raises(RuntimeError, match=NO_CARD):
+            call()
+    assert str(tpar.ShardedCodec("cpu").device) == "cpu"
+
+
+@pytest.mark.parametrize("name,gen", CASES, ids=IDS)
+def test_module_level_codec_on_the_cpu_matches_jax(name, gen):
+    data = gen()
+    jstream, _ = wah_tpu.compress(data)
+    stream, _ = wah_tpu_torch.compress(data, device="cpu")
+    np.testing.assert_array_equal(stream, jstream)
+    jout, _ = wah_tpu.decompress(jstream)  # no out_ints: the whole expansion
+    out, _ = wah_tpu_torch.decompress(stream, device="cpu")
+    np.testing.assert_array_equal(out, jout)
+    trimmed, _ = wah_tpu_torch.decompress(stream, len(data), "cpu")
+    np.testing.assert_array_equal(trimmed, data)
+
+
+@pytest.mark.parametrize("name,gen", CASES, ids=IDS)
+def test_plain_encode_and_decode_chunks_match_jax(name, gen):
+    import jax
+    import torch
+
+    from wah_tpu.ops import decode as jdecode
+    from wah_tpu.ops import encode as jencode
+    from wah_tpu_torch.convert import tensor_to_words, words_to_tensor
+    from wah_tpu_torch.ops import decode as tdecode
+    from wah_tpu_torch.ops import encode as tencode
+
+    data = gen()
+    jwords, jtotal = jax.jit(jencode.encode)(data)
+    words, total = tencode.encode(words_to_tensor(data, "cpu"))
+    assert words.dtype == torch.int32
+    np.testing.assert_array_equal(tensor_to_words(words), np.asarray(jwords))
+    assert int(total) == int(jtotal)
+
+    m = int(total)
+    cap = words.shape[0]
+    jchunks, jn = jax.jit(jdecode.decode_chunks, static_argnums=2)(jwords, m, cap)
+    chunks, n = tdecode.decode_chunks(words, m, cap)
+    np.testing.assert_array_equal(tensor_to_words(chunks), np.asarray(jchunks))
+    assert int(n) == int(jn) == golden.chunk_count(len(data))

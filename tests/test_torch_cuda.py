@@ -16,7 +16,11 @@ ties, odd search spans, key rows in rounds and negative values; the
 segment paths and the differential's quick matrix; the sharded codec's K2
 compaction of a gathered payload at edge totals, the per-rank decode from
 a chunk base, the bodies of eight ranks, and ShardedCodec("cuda") at a
-world of one.
+world of one; utils.profiling: K1's graph-replayed time against its
+CUDA-event time, captured encode and decode pipelines replayed against
+eager calls, a capture with a host read refused (last in the file); the
+entry points and ShardedCodec() in a one-rank group on the card by
+default.
 Tolerance is zero (an integer codec). They skip without a CUDA device.
 The card's machine has no JAX, so run them there without the JAX
 conftest:
@@ -718,3 +722,117 @@ def test_sharded_codec_world_of_one_on_cuda(cuda, name):
     np.testing.assert_array_equal(stream, golden.encode(data))
     np.testing.assert_array_equal(codec.decompress(stream, out_ints=len(data)), data)
     assert dk.decode_blocks.launches == before + 1
+
+
+# -- utils.profiling on the card, and the entry points' default device -----
+
+def _event_ms(fn, iters: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(iters):
+        fn()
+    ev1.record()
+    ev1.synchronize()
+    return ev0.elapsed_time(ev1) / iters
+
+
+def test_amortized_seconds_of_k1_is_its_event_time(cuda):
+    """K1 at the 130 MB protocol's shape (32,768 blocks, P(bit) = 2^-4 made
+    on the card) is one device-bound launch: the graph-replayed marginal
+    time and the CUDA-event time of back-to-back launches agree within 10%."""
+    from wah_tpu_torch.utils import profiling
+
+    nb = 32768
+    gen = torch.Generator(device=cuda).manual_seed(1337)
+    x = torch.randint(-2**31, 2**31, (nb, BLOCK_INTS), generator=gen, dtype=torch.int32, device=cuda)
+    for _ in range(3):
+        x &= torch.randint(-2**31, 2**31, x.shape, generator=gen, dtype=torch.int32, device=cuda)
+    nv = torch.tensor([nb * BLOCK_CHUNKS, 0, 0x7FFFFFFF], dtype=torch.int32, device=cuda)
+    eager = min(_event_ms(lambda: ek.encode_tiles(x, nv)) for _ in range(2))
+    cache = {}
+    replayed = profiling.amortized_seconds(ek.encode_tiles, x, nv, cache=cache, cache_key="k1") * 1e3
+    assert replayed == pytest.approx(eager, rel=0.10)
+    staging, counts = ek.encode_tiles(x, nv)
+    assert torch.equal(cache["k1"].out[0], staging) and torch.equal(cache["k1"].out[1], counts)
+
+
+@pytest.mark.parametrize("blocks", [1, 263, 4096])
+def test_captured_pipelines_replay_to_the_eager_output(cuda, blocks):
+    """The encode pipeline (K1, cumsum, K2) and the decode pipeline (K3,
+    cumsum, K4) captured in CUDA graphs: each replay equals the eager call,
+    also after the captured input is overwritten with another bitmap."""
+    from wah_tpu_torch.utils import profiling
+
+    n = blocks * BLOCK_INTS - 5
+    a, b = _bitmap(n, 1 / 16, blocks), _bitmap(n, 1 / 64, blocks + 1)
+    nv = golden.chunk_count(n)
+    cap = -(-nv // BLOCK_CHUNKS) * BLOCK_CHUNKS
+    ints = torch.zeros(blocks * BLOCK_INTS, dtype=torch.int32, device=cuda)
+    enc = profiling.capture(lambda t: ek.encode_padded(t, nv, stitch="v3"), ints)
+    for data in (a, b):
+        ints[:n] = words_to_tensor(data, cuda)
+        enc.graph.replay()
+        words, total = ek.encode_padded(ints, nv, stitch="v3")
+        m = int(total)
+        assert int(enc.out[1]) == m
+        assert torch.equal(enc.out[0][:m], words[:m])
+        ref = golden.encode(data)
+        np.testing.assert_array_equal(tensor_to_words(words[:m]), ref)
+
+        stream = torch.zeros(-(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS, dtype=torch.int32, device=cuda)
+        stream[:m] = words[:m]
+        dec = profiling.capture(lambda w: dk.decode(w, m, cap), stream)
+        stream.zero_()
+        stream[:m] = words[:m]  # the same words, written again after the capture
+        dec.graph.replay()
+        out, n_ints = dk.decode(stream, m, cap)
+        assert torch.equal(dec.out[0], out) and int(dec.out[1]) == int(n_ints)
+        np.testing.assert_array_equal(tensor_to_words(out[:n]), data)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    import wah_tpu_torch
+
+    codec = WahCodec()
+    assert codec.device == torch.device("cuda")
+    data = BITMAPS["sparse"]()
+    before = ek.encode_tiles.launches, dk.decode_blocks.launches
+    stream, _ = wah_tpu_torch.compress(data)
+    np.testing.assert_array_equal(stream, golden.encode(data))
+    out, _ = wah_tpu_torch.decompress(stream)  # no out_ints: the whole expansion
+    np.testing.assert_array_equal(out, golden.decode(stream))
+    assert (ek.encode_tiles.launches, dk.decode_blocks.launches) == (before[0] + 1, before[1] + 1)
+    values = np.random.default_rng(3).integers(0, 8, 5000)
+    idx = BitmapIndex.build(values)
+    assert idx.codec.device.type == "cuda"
+    np.testing.assert_array_equal(idx.rows(idx.query_eq(3)), np.flatnonzero(values == 3))
+
+
+def test_sharded_codec_takes_the_ranks_card_in_a_one_rank_group(cuda, tmp_path):
+    import torch.distributed as tdist
+
+    from wah_tpu_torch.parallel import ShardedCodec, multihost
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                             rank=0, timeout=multihost.TIMEOUT)
+    try:
+        codec = ShardedCodec(group=tdist.group.WORLD)
+        assert codec.device == torch.device("cuda", 0) == multihost.local_device("cuda")
+        data = BITMAPS["odd_size"]()
+        stream = codec.compress(data)
+        np.testing.assert_array_equal(stream, golden.encode(data))
+        np.testing.assert_array_equal(codec.decompress(stream, out_ints=len(data)), data)
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_a_step_with_a_host_read_cannot_be_captured(cuda):
+    """Last in this file: a capture that fails ends on the card."""
+    from wah_tpu_torch.utils import profiling
+
+    x = torch.ones(4096, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        profiling.amortized_seconds(lambda t: int(t.sum()), x)
+    assert int(x.sum()) == 4096  # the card still runs, on the caller's stream

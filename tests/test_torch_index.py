@@ -9,6 +9,7 @@ padding bits.
 """
 import numpy as np
 import pytest
+import torch
 
 import wah_tpu
 import wah_tpu_torch
@@ -75,8 +76,10 @@ def test_non_multiple_of_32_rows_default_cardinality():
         np.testing.assert_array_equal(idx.rows(idx.query_eq(v)), np.flatnonzero(values == v))
 
 
-def test_build_needs_a_codec_and_values():
-    with pytest.raises(TypeError):
+def test_build_needs_a_codec_and_values(monkeypatch):
+    # the default codec is WahCodec() on the card: without one it raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
         BitmapIndex.build(np.arange(4), 4)
     with pytest.raises(ValueError):
         BitmapIndex.build(np.zeros(0, np.int64), 1, codec=wah_tpu_torch.WahCodec("cpu"))

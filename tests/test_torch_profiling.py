@@ -1,0 +1,146 @@
+"""wah_tpu_torch.utils.profiling on the CPU: the measuring rules of
+marginal_seconds on synthetic clocks, amortized_seconds on a step of
+known cost, trace's Chrome-trace output and device_activity's reading of
+one. The CUDA-graph clock runs only on the card (tests/test_torch_cuda.py).
+
+Each synthetic clock is run(k) = d + k s in binary fractions, so every
+slope is exact in floating point; the k sequences below are worked out by
+hand from wah_tpu/utils/profiling.py:95-131:
+
+  b1 = run(1); k = 8; while bK < 4 b1: k = min(max_iters, max(2k,
+  int(3.2 b1 / slope) + 1), max(2k, int(2.5 / slope))), break once bK >
+  b1 + 2.5; then up to three K -> 2K slopes against (b1, bK), K doubling
+  while they differ by more than rel_tol, unless b2K > b1 + 6.
+"""
+import json
+
+import pytest
+import torch
+
+from wah_tpu_torch.utils import profiling
+
+S = 2.0 ** -20  # the marginal step of the clocks (~1 us)
+
+
+def _clock(d, s, extra=None):
+    """run(k) = d + k s (+ extra[k]), recording each k it is asked for."""
+    seen = []
+
+    def run(k):
+        seen.append(k)
+        return d + k * s + (extra or {}).get(k, 0.0)
+
+    return run, seen
+
+
+def test_escalation_visits_the_reference_sequence():
+    # b1 = 1025 S; k = 8: bK = 1032 S < 4 b1, slope S, target
+    # int(3.2 * 1025) + 1 = 3281, budget int(2.5 / S) -> k = 3281,
+    # bK = 4305 S >= 4100 S; slopes at 6562: (7586 - 4305) / 3281 = 1 and
+    # (4305 - 1025) / 3280 = 1 agree -> S.
+    run, seen = _clock(1024 * S, S)
+    assert profiling.marginal_seconds(run) == S
+    assert seen == [1, 8, 3281, 6562]
+
+
+def test_noise_breaks_the_cross_check_once_and_k_doubles():
+    # 400 S of noise at k = 3281: slopes (7586 - 4705) / 3281 = 0.878 S
+    # against (4705 - 1025) / 3280 = 1.122 S differ by 22% > 15%, so K
+    # doubles to 6562: (14148 - 7586) / 6562 = 1 against (7586 - 1025) /
+    # 6561 = 1 -> S.
+    run, seen = _clock(1024 * S, S, {3281: 400 * S})
+    assert profiling.marginal_seconds(run) == pytest.approx(S, rel=0.15)
+    assert seen == [1, 8, 3281, 6562, 13124]
+
+
+def test_escalation_stops_past_the_2_5_s_budget():
+    # d = 2 s; the step costs 2^-10 s up to k = 8 and 2^-9 s after it, so
+    # the slope is underestimated: b1 = 2 + 2^-10, k = 8, slope 2^-10,
+    # target int(3.2 * 2049) + 1 = 6557, budget 2560 -> k = 2560, bK =
+    # 2 + (8 + 2 * 2552) / 1024 = 6.992 < 4 b1 but > b1 + 2.5: stop
+    # escalating (without the break: k = 5120, then 10240). Slope at
+    # 5120: 5 / 2560 = 2^-9.
+    seen = []
+
+    def run(k):
+        seen.append(k)
+        return 2.0 + min(k, 8) * 2.0 ** -10 + max(k - 8, 0) * 2.0 ** -9
+
+    assert profiling.marginal_seconds(run) == 2.0 ** -9
+    assert seen == [1, 8, 2560, 5120]
+
+
+def test_unstable_slopes_return_once_a_window_passes_6_s():
+    # d = 1 s, s = 2^-12: k = 8, then budget int(2.5 * 4096) = 10240 (bK =
+    # 3.5), then 20480 (bK = 6 > b1 + 2.5: break); 3 s of noise at 40960
+    # makes the slopes (14 - 6) / 20480 and 5 / 20479 disagree, but b2K =
+    # 14 > b1 + 6: the K -> 2K slope is returned without doubling.
+    run, seen = _clock(1.0, 2.0 ** -12, {40960: 3.0})
+    assert profiling.marginal_seconds(run) == 8.0 / 20480
+    assert seen == [1, 8, 10240, 20480, 40960]
+
+
+def test_unstable_slopes_stop_at_max_iters():
+    # the same noise as above with max_iters = 2048: k = 8 -> 2048 (the
+    # cap; bK = 1.5 < 4 b1 but k is at the cap), slopes at 4096 taken once.
+    run, seen = _clock(1.0, 2.0 ** -12, {4096: 3.0})
+    assert profiling.marginal_seconds(run, max_iters=2048) == pytest.approx(
+        (3.0 + 2048 * 2.0 ** -12) / 2048)
+    assert seen == [1, 8, 2048, 4096]
+
+
+def test_amortized_seconds_of_a_busy_wait_on_the_cpu(monkeypatch):
+    """A step that busy-waits 2 ms on the clock amortized_seconds reads. The
+    clock is a virtual one, whose every read costs 10 us, so that other
+    processes on the machine cannot stretch the wait: the windows, the
+    warm-up and the escalation are the ones a real clock would get."""
+    now = [0.0]
+
+    def clock():
+        now[0] += 1e-5
+        return now[0]
+
+    monkeypatch.setattr(profiling.time, "perf_counter", clock)
+    cost = 2e-3
+
+    def busy(x):
+        t0 = clock()
+        while clock() - t0 < cost:
+            pass
+        return x + 1
+
+    got = profiling.amortized_seconds(busy, torch.zeros(4))
+    assert got == pytest.approx(cost, rel=0.3)
+
+
+def test_trace_writes_a_chrome_trace_of_the_block(tmp_path):
+    with profiling.trace(str(tmp_path)) as logdir:
+        torch.cumsum(torch.arange(1000), 0)
+    assert logdir == str(tmp_path)
+    assert isinstance(logdir.profiler, torch.profiler.profile)
+    files = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+    assert "aten::cumsum" in names
+    assert any(e.key == "aten::cumsum" for e in logdir.profiler.key_averages())
+    act = profiling.device_activity(logdir)
+    assert act["busy_us"] == 0.0 and act["ops"] == [] and act["window_us"] > 0
+
+
+def test_device_activity_takes_the_union_of_device_intervals(tmp_path):
+    ev = [
+        {"ph": "X", "cat": "cpu_op", "name": "aten::copy_", "ts": 100, "dur": 900},
+        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 200, "dur": 100},
+        {"ph": "X", "cat": "kernel", "name": "k2", "ts": 250, "dur": 100},  # overlaps k1
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 500, "dur": 250},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 550, "dur": 50},  # inside
+        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 900, "dur": 100},
+        {"ph": "s", "cat": "ac2g", "name": "flow", "ts": 0},  # no duration: not counted
+    ]
+    (tmp_path / "w.1.pt.trace.json").write_text(json.dumps({"traceEvents": ev}))
+    act = profiling.device_activity(str(tmp_path))
+    assert act["window_us"] == 900  # 100 .. 1000
+    assert act["busy_us"] == 150 + 250 + 100
+    assert act["busy_share"] == pytest.approx(500 / 900)
+    assert act["ops"] == [("Memcpy HtoD", 250.0, 1), ("k1", 200.0, 2), ("k2", 100.0, 1),
+                          ("Memset", 50.0, 1)]

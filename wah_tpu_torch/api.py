@@ -8,6 +8,10 @@ the compressed-domain logical ops (logical / logical_many).
 
 numpy uint32 in, numpy uint32 out, as in wah_tpu. On a CUDA device the
 kernels K1-K4 and K6 run (ops/cuda); on the CPU their plain versions.
+Like wah_tpu's, every entry point runs on the accelerator unless asked
+otherwise: the device defaults to "cuda", and without a CUDA device
+that default raises (resolve_device) instead of running on the CPU;
+pass device="cpu" for the plain versions.
 Differences from wah_tpu by design: single streams get no power-of-two
 shape buckets (they exist for jit-cache reuse, which PyTorch has no use
 for; batched columns keep a power-of-two width, which the kernels'
@@ -30,6 +34,7 @@ from .utils.timing import PhaseTimer, PhaseTimings
 
 __all__ = [
     "WahCodec", "compress", "decompress", "validate_stream", "checked_stream", "stream_chunks",
+    "resolve_device",
 ]
 
 # Chunk positions are int32 in the kernels: one bitmap is capped at
@@ -102,11 +107,21 @@ def stream_chunks(words: np.ndarray) -> int:
     return int(np.where(is_fill, words & np.uint32(LEN_MASK), 1).sum(dtype=np.int64))
 
 
-class WahCodec:
-    """WAH codec on one torch device ("cuda", "cuda:1", "cpu", ...)."""
+def resolve_device(device, who: str) -> torch.device:
+    """torch.device(device), raising RuntimeError for a CUDA device when
+    there is none: the port never falls back to the CPU by itself."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f'{who}: no CUDA device (pass device="cpu" for the plain versions)')
+    return device
 
-    def __init__(self, device):
-        self.device = torch.device(device)
+
+class WahCodec:
+    """WAH codec on one torch device ("cuda", the default, "cuda:1",
+    "cpu", ...)."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device, "WahCodec")
 
     def compress(self, data: np.ndarray) -> tuple[np.ndarray, PhaseTimings]:
         """Bitmap (uint32 array) -> (WAH stream, phase timings).
@@ -400,11 +415,11 @@ class WahCodec:
         return tensor_to_words(words[: int(total)])
 
 
-def compress(data: np.ndarray, device) -> tuple[np.ndarray, PhaseTimings]:
+def compress(data: np.ndarray, device="cuda") -> tuple[np.ndarray, PhaseTimings]:
     return WahCodec(device).compress(data)
 
 
 def decompress(
-    words: np.ndarray, out_ints: int | None, device
+    words: np.ndarray, out_ints: int | None = None, device="cuda"
 ) -> tuple[np.ndarray, PhaseTimings]:
     return WahCodec(device).decompress(words, out_ints=out_ints)

@@ -7,13 +7,15 @@ encode (WahCodec.compress_batch) and stored compressed, as numpy arrays
 on the host; equality, membership and range queries combine them with
 the compressed-domain logical ops on the codec's device.
 
-    idx = BitmapIndex.build(values, cardinality=8, codec=WahCodec("cuda"))
+    idx = BitmapIndex.build(values, cardinality=8)  # WahCodec() on the card
     hit_stream = idx.query_eq(3)              # compressed row bitmap
     rows = idx.rows(hit_stream)               # row ids (np.ndarray)
     s = idx.query_range(2, 5)                 # 2 <= v <= 5
     s = idx.query_in([1, 4, 7])               # membership
 
-The codec, and with it the device, is always given: there is no default.
+The codec defaults to WahCodec(), on the card, as wah_tpu's defaults to
+its accelerator; without a CUDA device that default raises, and
+codec=WahCodec("cpu") runs the plain versions.
 """
 from __future__ import annotations
 
@@ -36,22 +38,23 @@ def _bitmap_from_mask(mask: np.ndarray) -> np.ndarray:
 class BitmapIndex:
     """Equality-encoded bitmap index with WAH-compressed columns."""
 
-    def __init__(self, streams: list[np.ndarray], n_rows: int, codec: WahCodec):
+    def __init__(self, streams: list[np.ndarray], n_rows: int, codec: WahCodec | None = None):
         self.streams = streams
         self.n_rows = n_rows
         self.n_ints = -(-n_rows // 32)
-        self.codec = codec
+        self.codec = codec or WahCodec()
         self._universe_stream = None
 
     @classmethod
     def build(
-        cls, values: np.ndarray, cardinality: int | None = None, *, codec: WahCodec
+        cls, values: np.ndarray, cardinality: int | None = None, codec: WahCodec | None = None
     ) -> "BitmapIndex":
         """values: (n_rows,) small non-negative ints -> one compressed
         column per value in [0, cardinality) (default: max + 1)."""
         values = np.asarray(values)
         if values.ndim != 1 or values.size == 0:
             raise ValueError(f"values: expected a non-empty 1-D array, got {values.shape}")
+        codec = codec or WahCodec()  # before the masks: no card, no work
         C = int(cardinality if cardinality is not None else int(values.max()) + 1)
         n_rows = values.shape[0]
         vpad = np.full(-(-n_rows // 32) * 32, -1, dtype=np.int64)

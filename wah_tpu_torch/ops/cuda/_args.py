@@ -1,6 +1,7 @@
-"""Argument checks shared by the kernel wrappers, and the device rule:
-a tensor on the CPU takes the plain version, a CUDA tensor launches the
-kernel, anything else raises."""
+"""Argument checks shared by the kernel wrappers, the device rule (a
+tensor on the CPU takes the plain version, a CUDA tensor launches the
+kernel, anything else raises), and the small int32 argument tensors the
+pipelines build from Python ints."""
 from __future__ import annotations
 
 import torch
@@ -29,3 +30,15 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     return False
+
+
+def device_ints(values, device) -> torch.Tensor:
+    """(len(values),) int32 on `device` holding the Python ints `values`,
+    each written by a fill. torch.tensor(values, device=...) would copy
+    them from pageable host memory, which a CUDA graph cannot capture; a
+    fill carries its value in the launch, so a captured pipeline replays
+    with the same arguments."""
+    out = torch.empty(len(values), dtype=torch.int32, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out

@@ -25,7 +25,7 @@ from ...constants import BLOCK_CHUNKS, BLOCK_INTS
 from ...convert import to_i32
 from .. import bits
 from ..decode import expand_at, word_counts
-from ._args import check, on_cpu
+from ._args import check, device_ints, on_cpu
 from ._batch import rebase_exclusive_per_col
 
 __all__ = [
@@ -171,12 +171,10 @@ def _decode(words, m: int, chunk_capacity: int, chunk_base: int, prescan, blocks
     vc = (m - GRANULE * torch.arange(rows, dtype=_I64, device=dev)).clamp(0, GRANULE)
     words_t, g_sums = prescan(words, vc.to(torch.int32), rows)
     g_incl = torch.cumsum(g_sums, dim=0, dtype=torch.int32)
-    n_chunks = g_incl[-1:]
-    meta = torch.cat(
-        [n_chunks, torch.tensor([m, chunk_base, 0x7FFFFFFF], dtype=torch.int32, device=dev)]
-    )
+    meta = device_ints([0, m, chunk_base, 0x7FFFFFFF], dev)
+    meta[:1] = g_incl[-1:]  # n_chunks
     ints = blocks(words_t, g_incl - g_sums, meta, chunk_capacity // BLOCK_CHUNKS)
-    return ints.reshape(-1), n_chunks[0]
+    return ints.reshape(-1), g_incl[-1]
 
 
 def decode_span(
@@ -246,9 +244,8 @@ def _decode_column_group(words_flat, C: int, ms, cap: int, prescan, blocks):
     words_t, g_sums = prescan(words_flat, vc, C * gpc)
     g_base, col_totals = rebase_exclusive_per_col(g_sums, C, gpc, cap)
     # every column expands to the same chunk count (equal-length columns)
-    meta = torch.cat(
-        [col_totals[:1], torch.tensor([total, 0, cap - 1], dtype=torch.int32, device=ms.device)]
-    )
+    meta = device_ints([0, total, 0, cap - 1], ms.device)
+    meta[:1] = col_totals[:1]
     return blocks(words_t, g_base, meta, C * cap // BLOCK_CHUNKS).reshape(-1)
 
 

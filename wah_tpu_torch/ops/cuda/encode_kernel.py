@@ -32,7 +32,7 @@ import torch
 from ...constants import BLOCK_CHUNKS, BLOCK_INTS
 from .. import bits
 from ..encode import encode_blocks
-from ._args import check, on_cpu
+from ._args import check, device_ints, on_cpu
 from ._batch import rebase_exclusive_per_col
 from .stitch2 import stitch_tiles_plain, stitch_tiles_v2
 
@@ -153,8 +153,7 @@ def _blocks_and_nv(ints, n_valid_chunks: int, chunk_base: int):
         raise ValueError(f"expected (nb*{BLOCK_INTS},) ints, got {tuple(ints.shape)}")
     nb = ints.shape[0] // BLOCK_INTS
     bound = min(n_valid_chunks, chunk_base + nb * BLOCK_CHUNKS)
-    nv = torch.tensor([bound, chunk_base], dtype=torch.int32, device=ints.device)
-    return ints.view(nb, BLOCK_INTS), nv
+    return ints.view(nb, BLOCK_INTS), device_ints([bound, chunk_base], ints.device)
 
 
 def _encode_padded(ints, n_valid_chunks: int, chunk_base: int, stitch: str, tiles, v3, v1):
@@ -305,9 +304,7 @@ def _encode_rows_batch(ints2d, C: int, n_valid_chunks: int, group_rows: int, til
     col_chunks = nb * BLOCK_CHUNKS
     # validity wraps per column: chunk k of the group is valid iff
     # (k & (col_chunks - 1)) < n_valid_chunks
-    nv3 = torch.tensor(
-        [n_valid_chunks, 0, col_chunks - 1], dtype=torch.int32, device=ints2d.device
-    )
+    nv3 = device_ints([n_valid_chunks, 0, col_chunks - 1], ints2d.device)
     G = max(1, min(C, group_rows // nb))  # columns per group (int32 positions)
     words, totals = [], []
     for c0 in range(0, C, G):

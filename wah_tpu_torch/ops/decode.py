@@ -14,7 +14,7 @@ import torch
 from ..constants import BIT31, BIT3130, LEN_MASK, ONES31
 from . import bits
 
-__all__ = ["word_counts", "expand_at", "decode_span", "decode", "decode_batch"]
+__all__ = ["word_counts", "expand_at", "decode_span", "decode_chunks", "decode", "decode_batch"]
 
 _I64 = torch.int64
 
@@ -61,6 +61,15 @@ def decode_span(
     return chunks, n_chunks.to(torch.int32)
 
 
+def decode_chunks(
+    words: torch.Tensor, m, chunk_capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expand words[:m] into 31-bit chunks -> (chunks (chunk_capacity,)
+    int32, n_chunks int32): decode_span from chunk 0. Requires
+    chunk_capacity >= n_chunks; chunks beyond n_chunks are zero."""
+    return decode_span(words, m, 0, chunk_capacity)
+
+
 def decode(
     words: torch.Tensor, m, chunk_capacity: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -72,7 +81,7 @@ def decode(
     """
     if chunk_capacity % 32:
         raise ValueError(f"chunk_capacity must be a multiple of 32, got {chunk_capacity}")
-    chunks, n_chunks = decode_span(words, m, 0, chunk_capacity)
+    chunks, n_chunks = decode_chunks(words, m, chunk_capacity)
     return bits.merge_chunks(chunks), n_chunks - n_chunks // 32
 
 

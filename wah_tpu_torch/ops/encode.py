@@ -27,9 +27,12 @@ from ..constants import (
     WORD_ZEROS,
 )
 from ..convert import to_i32
+from ..golden import chunk_count
 from . import bits
 
-__all__ = ["classify", "encode_blocks", "place_rows", "stitch", "encode_padded", "encode_batch"]
+__all__ = [
+    "classify", "encode_blocks", "place_rows", "stitch", "encode_padded", "encode_batch", "encode",
+]
 
 _I64 = torch.int64
 
@@ -147,3 +150,18 @@ def encode_batch(
         raise ValueError("encode_batch: need at least one column")
     words, totals = zip(*(encode_padded(col, n_valid_chunks) for col in ints))
     return torch.stack(words), torch.stack(totals)
+
+
+def encode(ints: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compress a (n,) int32 bitmap -> (words (capacity,), total int32).
+
+    capacity = ceil(chunk_count(n) / 1024) * 1024; the stream is
+    words[:total] (reference host driver compress(), compress.cu:41-209):
+    pad to whole blocks, then encode_padded.
+    """
+    n = ints.shape[0]
+    nv = chunk_count(n)
+    nb = -(-nv // BLOCK_CHUNKS)
+    padded = torch.zeros(nb * BLOCK_INTS, dtype=torch.int32, device=ints.device)
+    padded[:n] = ints
+    return encode_padded(padded, nv)

@@ -32,12 +32,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..api import _check_size, checked_stream, stream_chunks
+from ..api import _check_size, checked_stream, resolve_device, stream_chunks
 from ..constants import BLOCK_CHUNKS, BLOCK_INTS
 from ..convert import tensor_to_words
 from ..golden import chunk_count
 from ..ops.cuda import decode_kernel, encode_kernel, stitch2
 from ._comm import all_gather, rank_and_size
+from .multihost import local_device
 
 __all__ = [
     "encode_local",
@@ -239,13 +240,15 @@ def _to_device(host: np.ndarray, length: int, device) -> torch.Tensor:
 class ShardedCodec:
     """The host API over the sharded codec (wah_tpu's ShardedCodec, one
     rank a device): every rank passes the whole numpy input and gets the
-    whole numpy output. `device` is this rank's device; `group` the
-    process group (None: the default one, or a world of one)."""
+    whole numpy output. `device` is this rank's device (None: this rank's
+    card, multihost.local_device, as wah_tpu's mesh=None takes every
+    chip); `group` the process group (None: the default one, or a world
+    of one)."""
 
-    def __init__(self, device, group=None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ShardedCodec: no CUDA device")
+    def __init__(self, device=None, group=None):
+        self.device = resolve_device("cuda" if device is None else device, "ShardedCodec")
+        if device is None:
+            self.device = local_device("cuda")
         self.group = group
 
     def compress(self, data: np.ndarray) -> np.ndarray:

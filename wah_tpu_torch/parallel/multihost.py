@@ -8,7 +8,7 @@ variables (MASTER_ADDR/MASTER_PORT with WORLD_SIZE, RANK, LOCAL_RANK):
 
     from wah_tpu_torch.parallel import ShardedCodec, multihost
     multihost.initialize("tcp://10.0.0.1:29500", world_size=4, rank=r)
-    codec = ShardedCodec(multihost.local_device(), multihost.global_group())
+    codec = ShardedCodec(group=multihost.global_group())  # this rank's card
 
 The backend is a rule, not a guess: NCCL when every rank has a CUDA
 device of its own, gloo otherwise (several ranks on one card, or the
