@@ -1,7 +1,9 @@
 """wah_tpu_torch.utils.profiling on the CPU: the measuring rules of
 marginal_seconds on synthetic clocks, amortized_seconds on a step of
 known cost, trace's Chrome-trace output and device_activity's reading of
-one. The CUDA-graph clock runs only on the card (tests/test_torch_cuda.py).
+one, and the program's spans: none without a profiler, the documented
+names and links under one. The CUDA-graph clock runs only on the card
+(tests/test_torch_cuda.py).
 
 Each synthetic clock is run(k) = d + k s in binary fractions, so every
 slope is exact in floating point; the k sequences below are worked out by
@@ -12,11 +14,16 @@ hand from wah_tpu/utils/profiling.py:95-131:
   b1 + 2.5; then up to three K -> 2K slopes against (b1, bK), K doubling
   while they differ by more than rel_tol, unless b2K > b1 + 6.
 """
+import contextlib
 import json
+import tempfile
 
+import numpy as np
 import pytest
 import torch
 
+from wah_tpu_torch import WahCodec
+from wah_tpu_torch.ops.cuda import decode_kernel, encode_kernel
 from wah_tpu_torch.utils import profiling
 
 S = 2.0 ** -20  # the marginal step of the clocks (~1 us)
@@ -144,3 +151,138 @@ def test_device_activity_takes_the_union_of_device_intervals(tmp_path):
     assert act["busy_share"] == pytest.approx(500 / 900)
     assert act["ops"] == [("Memcpy HtoD", 250.0, 1), ("k1", 200.0, 2), ("k2", 100.0, 1),
                           ("Memset", 50.0, 1)]
+
+
+def test_trace_defaults_to_a_fresh_directory_each_time(tmp_path, monkeypatch):
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    dirs = []
+    for _ in range(2):
+        with profiling.trace() as logdir:
+            torch.arange(10).sum()
+        dirs.append(logdir)
+    assert dirs[0] != dirs[1]
+    for d in dirs:
+        assert d.startswith(str(tmp_path / "wah_tpu_torch_trace-"))
+        assert len(list(tmp_path.glob(f"{d.rsplit('/', 1)[1]}/*.pt.trace.json"))) == 1
+
+
+# 5,000 ints: compress pads 5,000 -> 5,952 (6 blocks); the stream is padded
+# to whole 1024-word blocks in decompress
+N_INTS = 5000
+# (name, parent) of every span of one round trip, in the order they close
+ROUND_TRIP = [
+    ("wah.compress.pad", "wah.compress"),
+    ("wah.compress.to_device", "wah.compress"),
+    ("wah.encode", "wah.compress.kernel"),
+    ("wah.compress.kernel", "wah.compress"),
+    ("wah.compress.from_device", "wah.compress"),
+    ("wah.compress", None),
+    ("wah.decompress.validate", "wah.decompress"),
+    ("wah.decompress.count", "wah.decompress"),
+    ("wah.decompress.pad", "wah.decompress"),
+    ("wah.decompress.to_device", "wah.decompress"),
+    ("wah.decode", "wah.decompress.kernel"),
+    ("wah.decompress.kernel", "wah.decompress"),
+    ("wah.decompress.from_device", "wah.decompress"),
+    ("wah.decompress", None),
+]
+
+
+def _round_trip():
+    data = (np.random.default_rng(7).random(N_INTS) < 0.05).astype(np.uint32)
+    codec = WahCodec("cpu")
+    stream, tc = codec.compress(data)
+    out, td = codec.decompress(stream, out_ints=N_INTS)
+    assert np.array_equal(out, data)
+    return data, stream, tc, td
+
+
+def test_spans_record_nothing_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    profiling.clear()
+    _round_trip()
+    assert profiling.spans() == []
+    assert profiling.span("wah.compress") is profiling.span("wah.decode")  # one shared no-op
+
+
+def test_a_traced_round_trip_records_the_documented_spans(tmp_path):
+    profiling.clear()
+    with profiling.trace(str(tmp_path)):
+        data, stream, _, _ = _round_trip()
+    got = profiling.spans()
+    assert [(r.name, r.parent) for r in got] == ROUND_TRIP
+    calls = {r.name.split(".")[1]: r.call for r in got if r.parent is None}
+    assert calls["compress"] != calls["decompress"]
+    for r in got:
+        side = "compress" if r.name == "wah.encode" or r.name.startswith("wah.compress") \
+            else "decompress"
+        assert r.call == calls[side] and r.t0 <= r.t1
+        assert not r.name[-1].isdigit()  # never the benchmark's "<span>#<index>"
+    by_name = {r.name: r for r in got}
+    for r in got:  # each span lies inside its parent
+        if r.parent is not None:
+            assert by_name[r.parent].t0 <= r.t0 and r.t1 <= by_name[r.parent].t1
+    padded_ints = 6 * 992
+    padded_words = -(-len(stream) // 1024) * 1024
+    want = {
+        "wah.compress.pad": padded_ints * 4,
+        "wah.compress.to_device": padded_ints * 4,
+        "wah.compress.from_device": stream.nbytes,
+        "wah.decompress.validate": stream.nbytes,
+        "wah.decompress.pad": padded_words * 4,
+        "wah.decompress.to_device": padded_words * 4,
+        # the decoded ints that cross: whole groups of 31, before out_ints trims them
+        "wah.decompress.from_device": -(-N_INTS // 31) * 31 * 4,
+    }
+    assert {r.name: r.counts.get("bytes") for r in got if "bytes" in r.counts} == want
+    assert want["wah.decompress.from_device"] >= data.nbytes
+    (trace_file,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    annotated = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {name for name, _ in ROUND_TRIP} <= annotated
+
+
+def test_phase_spans_enclose_their_phase_timings():
+    profiling.clear()
+    with profiling.trace():
+        _, _, tc, td = _round_trip()
+    got = {r.name: r for r in profiling.spans()}
+    for side, timings in (("compress", tc), ("decompress", td)):
+        for phase in ("to_device", "kernel", "from_device"):
+            r = got[f"wah.{side}.{phase}"]
+            assert (r.t1 - r.t0) * 1e3 >= getattr(timings, f"{phase}_ms") - 0.5
+
+
+@pytest.mark.parametrize("pipeline", ["wah.encode", "wah.decode"])
+def test_each_pipeline_records_one_span(pipeline):
+    g = torch.Generator().manual_seed(3)
+    ints = torch.randint(-2**31, 2**31, (2 * 992,), dtype=torch.int32, generator=g)
+    words, total = encode_kernel.encode_padded(ints, 2 * 1024, stitch="v3")
+    profiling.clear()
+    with profiling.trace():
+        if pipeline == "wah.encode":
+            encode_kernel.encode_padded(ints, 2 * 1024, stitch="v3")
+        else:
+            decode_kernel.decode(words, int(total), 2 * 1024)
+    (r,) = profiling.spans()
+    assert r.name == pipeline and r.parent is None and r.counts == {}
+
+
+def test_the_span_buffer_stops_at_its_maxlen(monkeypatch):
+    """The buffer keeps the newest SPAN_BUFFER records. Recording is forced
+    on, with a no-op range, so that the test does not pay a profiler's
+    cost for each of the 65,536 spans."""
+    monkeypatch.setattr(profiling, "_recording", lambda: True)
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: contextlib.nullcontext())
+    profiling.clear()
+    for i in range(profiling.SPAN_BUFFER + 10):
+        with profiling.span("wah.test", i=i):
+            pass
+    got = profiling.spans()
+    assert profiling.SPAN_BUFFER == 65536 and len(got) == profiling.SPAN_BUFFER
+    assert got[0].counts == {"i": 10} and got[-1].counts == {"i": profiling.SPAN_BUFFER + 9}
+    profiling.clear()
+    assert profiling.spans() == []

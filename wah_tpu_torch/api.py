@@ -30,6 +30,7 @@ from .convert import tensor_to_words, words_to_tensor
 from .golden import chunk_count
 from .ops import logical as _lops
 from .ops.cuda import decode_kernel, encode_kernel
+from .utils.profiling import span
 from .utils.timing import PhaseTimer, PhaseTimings
 
 __all__ = [
@@ -128,29 +129,31 @@ class WahCodec:
 
         Mirrors reference compress() (compress.cu:41-209).
         """
-        data = np.ascontiguousarray(data, dtype=np.uint32)
-        n = data.shape[0]
-        if n == 0:
-            return np.zeros(0, dtype=np.uint32), PhaseTimings()
-        _check_size(n)
-        nv = chunk_count(n)
-        nb = -(-nv // BLOCK_CHUNKS)
-        if n != nb * BLOCK_INTS:  # pad to whole blocks
-            data = np.concatenate([data, np.zeros(nb * BLOCK_INTS - n, np.uint32)])
+        with span("wah.compress"):
+            data = np.ascontiguousarray(data, dtype=np.uint32)
+            n = data.shape[0]
+            if n == 0:
+                return np.zeros(0, dtype=np.uint32), PhaseTimings()
+            _check_size(n)
+            nv = chunk_count(n)
+            nb = -(-nv // BLOCK_CHUNKS)
+            if n != nb * BLOCK_INTS:  # pad to whole blocks
+                with span("wah.compress.pad", bytes=nb * BLOCK_INTS * 4):
+                    data = np.concatenate([data, np.zeros(nb * BLOCK_INTS - n, np.uint32)])
 
-        t = PhaseTimer(self.device)
-        t.start()
-        dev = words_to_tensor(data, self.device)
-        t.stop("to_device")
+            t = PhaseTimer(self.device, span="wah.compress")
+            t.start("to_device", bytes=data.nbytes)
+            dev = words_to_tensor(data, self.device)
+            t.stop("to_device")
 
-        t.start()
-        words, total = encode_kernel.encode_padded(dev, nv, stitch="v3")
-        t.stop("kernel")
+            t.start("kernel")
+            words, total = encode_kernel.encode_padded(dev, nv, stitch="v3")
+            t.stop("kernel")
 
-        t.start()
-        out = tensor_to_words(words[: int(total)])
-        t.stop("from_device")
-        return out, t.timings
+            t.start("from_device")
+            out = tensor_to_words(words[: int(total)])
+            t.stop("from_device", bytes=out.nbytes)
+            return out, t.timings
 
     def decompress(
         self, words: np.ndarray, out_ints: int | None = None
@@ -161,31 +164,36 @@ class WahCodec:
         (reference: decompress.cu:82-92); pass `out_ints` to trim to the
         original un-padded length.
         """
-        words = checked_stream(words)
-        m = words.shape[0]
-        if m == 0:
-            return np.zeros(0, dtype=np.uint32), PhaseTimings()
-        n_chunks = stream_chunks(words)
-        cap = max(1, -(-n_chunks // BLOCK_CHUNKS)) * BLOCK_CHUNKS
-        M = -(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS
-        if M != m:
-            words = np.concatenate([words, np.zeros(M - m, np.uint32)])
+        with span("wah.decompress"):
+            with span("wah.decompress.validate") as sp:
+                words = checked_stream(words)
+                sp.set(bytes=words.nbytes)
+            m = words.shape[0]
+            if m == 0:
+                return np.zeros(0, dtype=np.uint32), PhaseTimings()
+            with span("wah.decompress.count"):
+                n_chunks = stream_chunks(words)
+            cap = max(1, -(-n_chunks // BLOCK_CHUNKS)) * BLOCK_CHUNKS
+            M = -(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS
+            if M != m:
+                with span("wah.decompress.pad", bytes=M * 4):
+                    words = np.concatenate([words, np.zeros(M - m, np.uint32)])
 
-        t = PhaseTimer(self.device)
-        t.start()
-        dev = words_to_tensor(words, self.device)
-        t.stop("to_device")
+            t = PhaseTimer(self.device, span="wah.decompress")
+            t.start("to_device", bytes=words.nbytes)
+            dev = words_to_tensor(words, self.device)
+            t.stop("to_device")
 
-        t.start()
-        ints, n_ints = decode_kernel.decode(dev, m, cap)
-        t.stop("kernel")
+            t.start("kernel")
+            ints, n_ints = decode_kernel.decode(dev, m, cap)
+            t.stop("kernel")
 
-        t.start()
-        out = tensor_to_words(ints[: int(n_ints)])
-        t.stop("from_device")
-        if out_ints is not None:
-            out = out[:out_ints]
-        return out, t.timings
+            t.start("from_device")
+            out = tensor_to_words(ints[: int(n_ints)])
+            t.stop("from_device", bytes=out.nbytes)
+            if out_ints is not None:
+                out = out[:out_ints]
+            return out, t.timings
 
     # -- batched columns (bitmap-index workload) ---------------------------
     def compress_batch(self, data: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -23,6 +23,7 @@ import torch
 
 from ...constants import BLOCK_CHUNKS, BLOCK_INTS
 from ...convert import to_i32
+from ...utils.profiling import span
 from .. import bits
 from ..decode import expand_at, word_counts
 from ._args import check, device_ints, on_cpu
@@ -162,19 +163,20 @@ def _decode(words, m: int, chunk_capacity: int, chunk_base: int, prescan, blocks
     """The decode pipeline -> (ints, n_chunks int32 0-dim of the whole stream)."""
     if chunk_capacity % BLOCK_CHUNKS:
         raise ValueError(f"chunk_capacity must be a multiple of 1024, got {chunk_capacity}")
-    M = words.shape[0]
-    Mr = -(-M // BLOCK_CHUNKS) * BLOCK_CHUNKS
-    if Mr != M:
-        words = torch.cat([words, words.new_zeros(Mr - M)])
-    rows = Mr // GRANULE
-    dev = words.device
-    vc = (m - GRANULE * torch.arange(rows, dtype=_I64, device=dev)).clamp(0, GRANULE)
-    words_t, g_sums = prescan(words, vc.to(torch.int32), rows)
-    g_incl = torch.cumsum(g_sums, dim=0, dtype=torch.int32)
-    meta = device_ints([0, m, chunk_base, 0x7FFFFFFF], dev)
-    meta[:1] = g_incl[-1:]  # n_chunks
-    ints = blocks(words_t, g_incl - g_sums, meta, chunk_capacity // BLOCK_CHUNKS)
-    return ints.reshape(-1), g_incl[-1]
+    with span("wah.decode"):
+        M = words.shape[0]
+        Mr = -(-M // BLOCK_CHUNKS) * BLOCK_CHUNKS
+        if Mr != M:
+            words = torch.cat([words, words.new_zeros(Mr - M)])
+        rows = Mr // GRANULE
+        dev = words.device
+        vc = (m - GRANULE * torch.arange(rows, dtype=_I64, device=dev)).clamp(0, GRANULE)
+        words_t, g_sums = prescan(words, vc.to(torch.int32), rows)
+        g_incl = torch.cumsum(g_sums, dim=0, dtype=torch.int32)
+        meta = device_ints([0, m, chunk_base, 0x7FFFFFFF], dev)
+        meta[:1] = g_incl[-1:]  # n_chunks
+        ints = blocks(words_t, g_incl - g_sums, meta, chunk_capacity // BLOCK_CHUNKS)
+        return ints.reshape(-1), g_incl[-1]
 
 
 def decode_span(

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ...constants import BLOCK_CHUNKS, BLOCK_INTS
+from ...utils.profiling import span
 from .. import bits
 from ..encode import encode_blocks
 from ._args import check, device_ints, on_cpu
@@ -159,19 +160,20 @@ def _blocks_and_nv(ints, n_valid_chunks: int, chunk_base: int):
 def _encode_padded(ints, n_valid_chunks: int, chunk_base: int, stitch: str, tiles, v3, v1):
     if stitch not in STITCHES:
         raise ValueError(f"stitch must be one of {STITCHES}, got {stitch!r}")
-    ints2d, nv = _blocks_and_nv(ints, n_valid_chunks, chunk_base)
-    nb = ints2d.shape[0]
-    staging, counts = tiles(ints2d, nv)
-    offsets_ext = torch.cat(
-        [counts.new_zeros(1), torch.cumsum(counts[:, 0], dim=0, dtype=torch.int32)]
-    )
-    total = offsets_ext[-1]
-    if stitch == "auto":
-        # the gather stitch iff the stream fills at most 3/8 of its capacity
-        # (wah_tpu encode_kernel.py:856-864): one host read of the total
-        total = total.cpu()
-        stitch = "v1" if int(total) * 8 <= nb * BLOCK_CHUNKS * 3 else "v3"
-    return (v1 if stitch == "v1" else v3)(staging, offsets_ext), total
+    with span("wah.encode"):
+        ints2d, nv = _blocks_and_nv(ints, n_valid_chunks, chunk_base)
+        nb = ints2d.shape[0]
+        staging, counts = tiles(ints2d, nv)
+        offsets_ext = torch.cat(
+            [counts.new_zeros(1), torch.cumsum(counts[:, 0], dim=0, dtype=torch.int32)]
+        )
+        total = offsets_ext[-1]
+        if stitch == "auto":
+            # the gather stitch iff the stream fills at most 3/8 of its capacity
+            # (wah_tpu encode_kernel.py:856-864): one host read of the total
+            total = total.cpu()
+            stitch = "v1" if int(total) * 8 <= nb * BLOCK_CHUNKS * 3 else "v3"
+        return (v1 if stitch == "v1" else v3)(staging, offsets_ext), total
 
 
 def encode_padded(

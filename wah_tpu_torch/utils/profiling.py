@@ -11,12 +11,33 @@ CUDA events, so the host's launch gaps between the step's small ops,
 which an eager timing of the step includes, stay out of the number.
 `marginal_seconds` holds the measuring rules, as a function of any
 `run(k) -> seconds` clock.
+
+(c) `span(name, **counts)` marks a phase of the program's own work (the
+API's host phases, the pipelines' issue). It records only while a torch
+profiler records, under `trace` or any other: then it opens a
+torch.profiler range of that name, which lands in the Chrome trace on the
+device's clock, and keeps a `SpanRecord` on time.perf_counter() in a
+bounded buffer that `spans()` reads and `clear()` empties. Otherwise it
+costs one check. The names the port records:
+
+  wah.compress, wah.decompress            a whole WahCodec call (the top
+                                          level: one call id each)
+  wah.compress.pad, wah.decompress.pad    the copy to whole blocks (bytes)
+  wah.decompress.validate                 checked_stream (bytes)
+  wah.decompress.count                    stream_chunks
+  wah.{compress,decompress}.to_device     the PhaseTimer phases; the copies
+  wah.{compress,decompress}.kernel        carry the bytes that cross
+  wah.{compress,decompress}.from_device
+  wah.encode                              encode_padded's pipeline, issued
+  wah.decode                              decode's pipeline, issued
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import json
-import os
 import tempfile
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -26,7 +47,96 @@ import torch
 
 __all__ = [
     "trace", "device_activity", "amortized_seconds", "marginal_seconds", "capture", "CapturedStep",
+    "span", "spans", "clear", "SpanRecord",
 ]
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: its name, its start and end on time.perf_counter(),
+    the name of the span it was opened in (None at the top level), the id
+    of the top-level span it belongs to (one call of the API), and the
+    numbers it counted (bytes=...)."""
+
+    name: str
+    t0: float
+    t1: float
+    parent: str | None
+    call: int
+    counts: dict
+
+
+# the newest records; a trace that outruns it keeps its last SPAN_BUFFER
+SPAN_BUFFER = 65536
+_records: collections.deque = collections.deque(maxlen=SPAN_BUFFER)
+_open = threading.local()  # .stack: the spans open on this thread
+_calls = itertools.count(1)
+_recording = torch._C._autograd._profiler_enabled
+
+
+class _NoSpan:
+    """What `span` gives while no profiler records: nothing at all."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **counts) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "counts", "parent", "call", "t0", "_range")
+
+    def __init__(self, name: str, counts: dict):
+        self.name = name
+        self.counts = counts
+
+    def set(self, **counts) -> None:
+        """Count what is known only inside the span (the bytes of a result)."""
+        self.counts.update(counts)
+
+    def __enter__(self):
+        stack = _open.__dict__.setdefault("stack", [])
+        outer = stack[-1] if stack else None
+        self.parent = outer.name if outer else None
+        self.call = outer.call if outer else next(_calls)
+        stack.append(self)
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        self._range.__exit__(*exc)
+        _open.stack.pop()
+        _records.append(SpanRecord(self.name, self.t0, t1, self.parent, self.call, self.counts))
+        return False
+
+
+def span(name: str, **counts):
+    """A context manager around a phase of the program's work, recording
+    only while a torch profiler records (see the module's docstring); its
+    `set(**counts)` adds counts from inside. Names never end in
+    "#<digits>", the form of a benchmark's own spans."""
+    if not _recording():
+        return _NO_SPAN
+    return _Span(name, counts)
+
+
+def spans() -> list[SpanRecord]:
+    """The records kept, oldest first."""
+    return list(_records)
+
+
+def clear() -> None:
+    """Forget the records kept."""
+    _records.clear()
 
 
 class Trace(str):
@@ -39,12 +149,13 @@ class Trace(str):
 
 @contextmanager
 def trace(logdir: str | None = None):
-    """Capture a device profile around a block into `logdir` (default:
-    wah_tpu_torch_trace in the temporary directory), as a Chrome-trace
-    JSON: `tensorboard --logdir=...` or Perfetto. CPU activity always,
-    CUDA activity whenever a CUDA device is present."""
+    """Capture a device profile around a block into `logdir` (default: a
+    fresh wah_tpu_torch_trace-* directory in the temporary directory), as
+    a Chrome-trace JSON: `tensorboard --logdir=...` or Perfetto. CPU
+    activity always, CUDA activity whenever a CUDA device is present. The
+    program's spans record inside the block."""
     if logdir is None:
-        logdir = os.path.join(tempfile.gettempdir(), "wah_tpu_torch_trace")
+        logdir = tempfile.mkdtemp(prefix="wah_tpu_torch_trace-")
     cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
