@@ -5,11 +5,12 @@ device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and no network, and
 imports nothing of JAX or wah_tpu. Phases, one or more lines each:
 
   1. device   the card's name and power limit, as nvidia-smi reports them
-  2. build    nvcc builds kernels K1-K6 and T1 from wah_tpu_torch/csrc/
+  2. build    nvcc builds kernels K1-K6, T1 and V1 from wah_tpu_torch/csrc/
   3. kernels  each kernel against its plain torch version on the card, at
               the main path's shapes (32,768 blocks, the 130 MB protocol),
-              and K6 also on the all-zero 130 MB bitmap's staging and on
-              offset edge cases: bit-exact, tolerance 0 (an integer codec)
+              K6 also on the all-zero 130 MB bitmap's staging and on
+              offset edge cases, V1 also with a bad last word: bit-exact,
+              tolerance 0 (an integer codec)
   3b. batch   the batched encode (K1 with a per-column position mask, K2
               with per-row counts) and decode (K3 with per-column valid
               counts, K4 with the mask) against their plain twins at the
@@ -71,8 +72,9 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
               two stagings, the query folds; K1 and K4 also on the query
               shape's batched columns; K5 beside the K1 + cumsum + K2
               pipeline; T1's kernel beside the torch scans; K2 and K6
-              beside torch.masked_select; each kernel's bound from this
-              run's bytes; host-clock seconds of the index build, of Q6
+              beside torch.masked_select; V1 beside the torch compare and
+              sum calls, also on the 992 MB sweep bitmap's stream (2^-4,
+              ~1.07 GB); each kernel's bound from this run's bytes; host-clock seconds of the index build, of Q6
               and of the segment paths through the API
   6b. profiling  wah_tpu_torch.utils.profiling on the protocol: K1-K4 and
               the encode and decode pipelines timed by amortized_seconds
@@ -145,7 +147,8 @@ PEAK_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12
 # rough instruction counts per element (chunk or word) of each kernel: they
 # only show which of the two bounds is the larger
 OPS_PER_ELEMENT = {"encode_tiles": 60, "stitch_tiles_v2": 4, "prescan_words": 8,
-                   "decode_blocks": 80, "stitch_tiles": 12, "encode_fused": 64, "rows_scan": 40}
+                   "decode_blocks": 80, "stitch_tiles": 12, "encode_fused": 64, "rows_scan": 40,
+                   "check_stream": 8}
 
 # (name, source, TPU kernel replaced)
 KERNELS = [
@@ -156,6 +159,8 @@ KERNELS = [
     ("stitch_tiles", "wah_tpu_torch/csrc/stitch_gather.cu", "wah_tpu/ops/pallas/encode_kernel.py:504"),
     ("encode_fused", "wah_tpu_torch/csrc/encode_fused.cu", "wah_tpu/ops/pallas/encode_kernel.py:713"),
     ("rows_scan", "wah_tpu_torch/csrc/scan_check.cu", "tests/test_pallas.py:196"),
+    ("check_stream", "wah_tpu_torch/csrc/stream_check.cu",
+     "none: wah_tpu checks and counts a stream on the host (wah_tpu/api.py checked_stream)"),
 ]
 
 
@@ -302,6 +307,18 @@ def cuda_ms(fn, iters: int) -> float:
     return ev0.elapsed_time(ev1) / iters
 
 
+def check_stream_library(w, m: int):
+    """[first_bad, n_chunks] of w[:m] (int32) by torch calls alone: the
+    yardstick for V1, used nowhere in the port."""
+    import torch
+
+    w = w[:m]
+    length = w & 0x3FFFFFFF
+    fill = w < 0
+    bad = (w == 0) | (w == 0x7FFFFFFF) | (fill & ((length < 1) | (length > 1024)))
+    return bad.any(), bad.int().argmax(), torch.where(fill, length, 1).sum(dtype=torch.int64)
+
+
 def host_issue_ms(fn, iters: int) -> float:
     """Host-clock milliseconds to issue one fn() (its launches queued, not
     run): the mean of `iters` calls after one warm-up, read before the
@@ -361,10 +378,11 @@ def run(cuda, kernels_only: bool = False, profile: bool = False) -> None:
     from wah_tpu_torch.ops.cuda import decode_kernel as dk
     from wah_tpu_torch.ops.cuda import encode_kernel as ek
     from wah_tpu_torch.ops.cuda import scan_check, stitch2
+    from wah_tpu_torch.ops.cuda import stream_check as sc
 
     wrappers = {w.__name__: w for w in (ek.encode_tiles, stitch2.stitch_tiles_v2,
                                         dk.prescan_words, dk.decode_blocks, ek.stitch_tiles,
-                                        ek.encode_fused, scan_check.rows_scan)}
+                                        ek.encode_fused, scan_check.rows_scan, sc.check_stream)}
 
     # 1. device
     card = device_line()
@@ -415,7 +433,8 @@ def run(cuda, kernels_only: bool = False, profile: bool = False) -> None:
         return
     with Phase("4 codec"):
         ratio, proto["golden"] = main_path(
-            "codec", list(wrappers)[:4], lambda: phase_codec(cuda, proto["data"]))
+            "codec", list(wrappers)[:4] + ["check_stream"],
+            lambda: phase_codec(cuda, proto["data"]))
     with Phase("4b queries"):
         phase_queries(cuda, query, main_path)
     with Phase("4c index"):
@@ -484,6 +503,7 @@ def kernel_bounds(proto, scans):
                           p["nbo"] * 1024),
         "encode_fused": (nb * 992 * 4 + 8 + total * 4 + nb * 4, chunks),
         "rows_scan": (3 * x.numel() * 4 + 2 * keys.numel() * 4, x.numel()),
+        "check_stream": (total * 4 + 16, total),
     }
     out = {}
     for name, (nbytes, elements) in work.items():
@@ -503,6 +523,7 @@ def phase_kernels(cuda):
     from wah_tpu_torch.ops.cuda import decode_kernel as dk
     from wah_tpu_torch.ops.cuda import encode_kernel as ek
     from wah_tpu_torch.ops.cuda import stitch2
+    from wah_tpu_torch.ops.cuda import stream_check as sc
 
     n = PROTOCOL_BLOCKS * 992
     data = bench_bitmap(n)
@@ -541,6 +562,15 @@ def phase_kernels(cuda):
     nbo = -(-n_chunks // 1024)
     out = dk.decode_blocks(words_t, g_base, meta, nbo)
     errs["decode_blocks"] = exact("K4 ints", out, dk.decode_blocks_plain(words_t, g_base, meta, nbo))
+    bad_last = stream.clone()
+    bad_last[m - 1] = 0
+    errs["check_stream"] = max(
+        exact("V1 [first_bad, n_chunks]", sc.check_stream(stream, m), sc.check_stream_plain(stream, m)),
+        exact("V1, bad last word", sc.check_stream(bad_last, m), sc.check_stream_plain(bad_last, m)),
+    )
+    if sc.check_stream(stream, m).tolist() != [m, n_chunks] or int(sc.check_stream(bad_last, m)[0]) != m - 1:
+        raise AssertionError("V1 disagrees with K3's chunk count or misses the bad last word")
+    del bad_last
 
     # K6: the protocol's staging, the all-zero bitmap's (one word a row), edges
     zeros = torch.zeros_like(ints2d)
@@ -1422,6 +1452,7 @@ def phase_kernel_times(cuda, card, proto, query, scans, profile: bool = False):
     from wah_tpu_torch.ops.cuda import decode_kernel as dk
     from wah_tpu_torch.ops.cuda import encode_kernel as ek
     from wah_tpu_torch.ops.cuda import scan_check, stitch2
+    from wah_tpu_torch.ops.cuda import stream_check as sc
 
     p = proto
     n = PROTOCOL_BLOCKS * 992
@@ -1442,6 +1473,8 @@ def phase_kernel_times(cuda, card, proto, query, scans, profile: bool = False):
                          lambda: ek.encode_fused_plain(p["ints2d"], nv2)),
         "rows_scan": (lambda: scan_check.rows_scan(sx, sk),
                       lambda: scan_check.rows_scan_plain(sx, sk)),
+        "check_stream": (lambda: sc.check_stream(p["stream"], p["m"]),
+                         lambda: sc.check_stream_plain(p["stream"], p["m"])),
         "encode pipeline": (lambda: ek.encode_padded(p["ints"], golden.chunk_count(n), stitch="v3"),
                             lambda: ek.encode_padded_plain(p["ints"], golden.chunk_count(n), stitch="v3")),
         "decode pipeline": (lambda: dk.decode(p["stream"], p["m"], p["nbo"] * 1024),
@@ -1493,6 +1526,37 @@ def phase_kernel_times(cuda, card, proto, query, scans, profile: bool = False):
           f"{scan_ms['searchsorted']:.4f} ms (kernel, all three: {ms['rows_scan'][0]:.4f}) on {card}",
           flush=True)
     del mask, csum
+
+    # V1 beside the torch calls that compute the same [first_bad, n_chunks]
+    # (compares, an argmax, a sum), at the protocol and at the api cell's
+    # stream: the 992 MB sweep bitmap at 2^-4 (AND of 4 uniform words),
+    # drawn and encoded on the card
+    library_ms["check_stream"] = min(
+        cuda_ms(lambda: check_stream_library(p["stream"], p["m"]), 10) for _ in range(2))
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+    big = torch.randint(-2**31, 2**31, (SWEEP_MAX_BLOCKS * 992,), generator=gen, dtype=torch.int32,
+                        device=cuda)
+    for _ in range(3):
+        big &= torch.randint(-2**31, 2**31, big.shape, generator=gen, dtype=torch.int32, device=cuda)
+    words, total = ek.encode_padded(big, golden.chunk_count(big.numel()), stitch="v3")
+    del big
+    bm = int(total)
+    big_stream = torch.zeros(-(-bm // 1024) * 1024, dtype=torch.int32, device=cuda)
+    big_stream[:bm] = words[:bm]
+    del words
+    got = sc.check_stream(big_stream, bm)
+    if got.tolist() != sc.check_stream_plain(big_stream, bm).tolist() or int(got[0]) != bm:
+        raise AssertionError("V1 differs from its plain twin on the sweep stream")
+    big_ms = {
+        "kernel": min(cuda_ms(lambda: sc.check_stream(big_stream, bm), 20) for _ in range(2)),
+        "plain": min(cuda_ms(lambda: sc.check_stream_plain(big_stream, bm), 3) for _ in range(2)),
+        "library": min(cuda_ms(lambda: check_stream_library(big_stream, bm), 5) for _ in range(2)),
+    }
+    bound = (bm * 4 + 16) / PEAK_BYTES_PER_S * 1e3
+    print(f"[6 times] check_stream on the sweep stream ({bm} words, {bm * 4 / 1e6:.1f} MB): "
+          f"kernel {big_ms['kernel']:.4f} ms, bound {bound:.4f} ms ({bound / big_ms['kernel']:.0%}), "
+          f"plain {big_ms['plain']:.4f} ms, library {big_ms['library']:.4f} ms on {card}", flush=True)
+    del big_stream
 
     # K6 against K2 on the same staging: the protocol's (2^-4, dense), the
     # all-zero bitmap's, and 130 MB stagings at the densities between, where

@@ -147,13 +147,14 @@ def _c_entries():
 @pytest.mark.parametrize("entry", sorted(_c_entries()))
 def test_ctypes_signature_matches_the_c_entry(entry):
     """The kernels cannot be built here, so the argument lists that ctypes is
-    given are held against the sources: pointers as void*, sizes as int, the
-    stream last."""
+    given are held against the sources: pointers as void*, sizes as int (a
+    stream's length as long long), the stream last."""
     import ctypes
 
     from wah_tpu_torch.ops.cuda import _build
 
-    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong}
     declared = _c_entries()
     assert sorted(declared) == sorted(_build._SIGNATURES)
     assert [kinds[p] for p in declared[entry]] == _build._SIGNATURES[entry]

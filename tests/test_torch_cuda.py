@@ -1,4 +1,4 @@
-"""On-card tests of the CUDA kernels K1-K6 and T1 (marker `cuda`).
+"""On-card tests of the CUDA kernels K1-K6, T1 and V1 (marker `cuda`).
 
 Each kernel against its plain torch version on the same CUDA tensors, and
 WahCodec("cuda") against the golden model, on small edge cases that
@@ -16,7 +16,10 @@ ties, odd search spans, key rows in rounds and negative values; the
 segment paths and the differential's quick matrix; the sharded codec's K2
 compaction of a gathered payload at edge totals, the per-rank decode from
 a chunk base, the bodies of eight ranks, and ShardedCodec("cuda") at a
-world of one; utils.profiling: K1's graph-replayed time against its
+world of one; V1 (the stream check) against its plain twin on the cases
+of tests/test_torch_stream_check.py and on a 2^-4 protocol stream with
+bad words past its last 16 B vector, and WahCodec("cuda").decompress
+checking on the card alone; utils.profiling: K1's graph-replayed time against its
 CUDA-event time, captured encode and decode pipelines replayed against
 eager calls, a capture with a host read refused (last in the file); the
 entry points and ShardedCodec() in a one-rank group on the card by
@@ -38,7 +41,9 @@ from wah_tpu_torch.ops.cuda import decode_kernel as dk
 from wah_tpu_torch.ops.cuda import encode_kernel as ek
 from wah_tpu_torch.ops import logical
 from wah_tpu_torch.ops.cuda import scan_check, stitch2
+from wah_tpu_torch.ops.cuda import stream_check as sc
 from test_torch_dist_cases import COMPACT_TOTALS, compact_case
+from test_torch_stream_check import CASES as CHECK_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -722,6 +727,95 @@ def test_sharded_codec_world_of_one_on_cuda(cuda, name):
     np.testing.assert_array_equal(stream, golden.encode(data))
     np.testing.assert_array_equal(codec.decompress(stream, out_ints=len(data)), data)
     assert dk.decode_blocks.launches == before + 1
+
+
+# -- V1: the stream checked and counted on the card -------------------------
+
+@pytest.mark.parametrize("name", CHECK_CASES)
+def test_check_stream_matches_plain(cuda, name):
+    """V1 against its plain twin on a buffer of whole blocks, as decompress
+    sends it, with zero (bad) words past m."""
+    words = CHECK_CASES[name][0]()
+    m = len(words)
+    buf = words_to_tensor(words, cuda, size=-(-(m + 1) // BLOCK_CHUNKS) * BLOCK_CHUNKS)
+    before = sc.check_stream.launches
+    got = sc.check_stream(buf, m)
+    assert sc.check_stream.launches == before + 1 and got.device == buf.device
+    assert got.tolist() == sc.check_stream_plain(buf.cpu(), m).tolist()
+
+
+def test_check_stream_on_a_protocol_stream_with_bad_words_in_its_tail(cuda):
+    """V1 on a 2^-4 protocol stream of 8,192 blocks (~8.4 M words: the
+    persistent grid's unrolled walk and the walk after it both run),
+    lengthened by literals to m % 4 == 3 so that three words lie past the
+    last 16 B vector; bad words there, in the body before them, and both."""
+    nb = 8192
+    gen = torch.Generator(device=cuda).manual_seed(2024)
+    x = torch.randint(-2**31, 2**31, (nb * BLOCK_INTS,), generator=gen, dtype=torch.int32,
+                      device=cuda)
+    for _ in range(3):
+        x &= torch.randint(-2**31, 2**31, x.shape, generator=gen, dtype=torch.int32, device=cuda)
+    words, total = ek.encode_padded(x, nb * BLOCK_CHUNKS, stitch="v3")
+    head = tensor_to_words(words[: int(total)])
+    stream = np.concatenate([head, np.full((3 - len(head)) % 4, 0x5, np.uint32)])
+    m = len(stream)
+    assert m % 4 == 3 and m > 8_000_000
+    cases = {
+        "valid": {},
+        "last": {m - 1: 0},
+        "tail_first_and_last": {m - 3: golden.BIT31, m - 1: golden.ONES31},
+        "body_then_tail": {m - 7: golden.BIT31 | 1025, m - 2: 0},
+        "first_vector_and_tail": {1: golden.ONES31, m - 1: 0},
+        "far_apart": {m // 3: 0, 2 * m // 3: golden.BIT31},
+    }
+    for label, at in cases.items():
+        s = stream.copy()
+        for i, w in at.items():
+            s[i] = w
+        buf = words_to_tensor(s, cuda, size=-(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS)
+        got = sc.check_stream(buf, m).tolist()
+        assert got == sc.check_stream_plain(buf.cpu(), m).tolist(), label
+        assert got[0] == min(at, default=m), label
+    with pytest.raises(ValueError, match="16 B"):
+        sc.check_stream(buf[1:], m - 1)
+
+
+@pytest.mark.parametrize("name", CHECK_CASES)
+def test_codec_on_cuda_checks_the_stream_on_the_card(cuda, name, monkeypatch):
+    """WahCodec("cuda").decompress launches V1 once a call and reads the
+    stream on the host only to copy it: with the host codec's check and
+    count refusing to run, it raises checked_stream's message for a
+    malformed stream and decodes a valid one as the CPU codec does."""
+    from wah_tpu_torch import api, native
+
+    gen, first_bad = CHECK_CASES[name]
+    words = gen()
+    if first_bad is None:
+        want = WahCodec("cpu").decompress(words)[0]
+    else:
+        with pytest.raises(ValueError) as err:
+            api.checked_stream(words)
+        want = str(err.value)
+        assert not native.available() or want == api._violation(int(words[first_bad]))
+
+    def reached(*_):
+        raise AssertionError("a host pass over the stream")
+
+    for mod, fn in ((native, "validate"), (native, "decoded_chunks"), (api, "checked_stream"),
+                    (api, "stream_chunks"), (api, "validate_stream")):
+        monkeypatch.setattr(mod, fn, reached)
+    codec = WahCodec(cuda)
+    before = sc.check_stream.launches, dk.decode_blocks.launches
+    if first_bad is None:
+        np.testing.assert_array_equal(codec.decompress(words)[0], want)
+        assert (sc.check_stream.launches, dk.decode_blocks.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    else:
+        with pytest.raises(ValueError) as err:
+            codec.decompress(words)
+        assert str(err.value) == want
+        # raised before any decode was launched
+        assert (sc.check_stream.launches, dk.decode_blocks.launches) == (before[0] + 1, before[1])
 
 
 # -- utils.profiling on the card, and the entry points' default device -----

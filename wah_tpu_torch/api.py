@@ -7,7 +7,8 @@ bitmaps and columns of any size as block-aligned segments
 the compressed-domain logical ops (logical / logical_many).
 
 numpy uint32 in, numpy uint32 out, as in wah_tpu. On a CUDA device the
-kernels K1-K4 and K6 run (ops/cuda); on the CPU their plain versions.
+kernels K1-K4, K6 and V1 (the stream check) run (ops/cuda); on the CPU
+their plain versions.
 Like wah_tpu's, every entry point runs on the accelerator unless asked
 otherwise: the device defaults to "cuda", and without a CUDA device
 that default raises (resolve_device) instead of running on the CPU;
@@ -29,7 +30,7 @@ from .constants import BIT31, BLOCK_CHUNKS, BLOCK_INTS, LEN_MASK, ONES31
 from .convert import tensor_to_words, words_to_tensor
 from .golden import chunk_count
 from .ops import logical as _lops
-from .ops.cuda import decode_kernel, encode_kernel
+from .ops.cuda import decode_kernel, encode_kernel, stream_check
 from .utils.profiling import span
 from .utils.timing import PhaseTimer, PhaseTimings
 
@@ -72,6 +73,10 @@ def _check_segment_ints(segment_ints: int) -> None:
     _check_size(segment_ints)
 
 
+_LITERAL_FILL = "invalid WAH stream: contains literal-fill word"
+_FILL_LENGTH = "invalid WAH stream: fill length out of range"
+
+
 def validate_stream(words: np.ndarray) -> None:
     """Check a WAH stream against the format invariants (SURVEY.md section
     0.1): no 0x0/0x7FFFFFFF words, fill lengths in [1, 1024]. The
@@ -79,11 +84,17 @@ def validate_stream(words: np.ndarray) -> None:
     decompress here validates first."""
     words = np.asarray(words, dtype=np.uint32)
     if np.any(words == 0) or np.any(words == ONES31):
-        raise ValueError("invalid WAH stream: contains literal-fill word")
+        raise ValueError(_LITERAL_FILL)
     fills = words[(words & np.uint32(BIT31)) != 0]
     lens = fills & np.uint32(LEN_MASK)
     if fills.size and (lens.min() < 1 or lens.max() > BLOCK_CHUNKS):
-        raise ValueError("invalid WAH stream: fill length out of range")
+        raise ValueError(_FILL_LENGTH)
+
+
+def _violation(word: int) -> str:
+    """The message checked_stream gives for a stream whose first word that
+    breaks the format is `word` (native.validate reports the first)."""
+    return _LITERAL_FILL if word in (0, ONES31) else _FILL_LENGTH
 
 
 def checked_stream(words: np.ndarray) -> np.ndarray:
@@ -165,24 +176,23 @@ class WahCodec:
         original un-padded length.
         """
         with span("wah.decompress"):
-            with span("wah.decompress.validate") as sp:
-                words = checked_stream(words)
-                sp.set(bytes=words.nbytes)
+            words = np.ascontiguousarray(words, dtype=np.uint32)
             m = words.shape[0]
             if m == 0:
                 return np.zeros(0, dtype=np.uint32), PhaseTimings()
-            with span("wah.decompress.count"):
-                n_chunks = stream_chunks(words)
-            cap = max(1, -(-n_chunks // BLOCK_CHUNKS)) * BLOCK_CHUNKS
-            M = -(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS
-            if M != m:
-                with span("wah.decompress.pad", bytes=M * 4):
-                    words = np.concatenate([words, np.zeros(M - m, np.uint32)])
 
+            # the stream as it is, into a device buffer of whole blocks
             t = PhaseTimer(self.device, span="wah.decompress")
             t.start("to_device", bytes=words.nbytes)
-            dev = words_to_tensor(words, self.device)
+            dev = words_to_tensor(words, self.device, size=-(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS)
             t.stop("to_device")
+
+            # checked and counted on the device, in one pass over the copy
+            with span("wah.decompress.validate", bytes=words.nbytes):
+                first_bad, n_chunks = stream_check.check_stream(dev, m).tolist()
+            if first_bad < m:
+                raise ValueError(_violation(int(words[first_bad])))
+            cap = max(1, -(-n_chunks // BLOCK_CHUNKS)) * BLOCK_CHUNKS
 
             t.start("kernel")
             ints, n_ints = decode_kernel.decode(dev, m, cap)

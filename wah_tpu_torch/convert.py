@@ -13,11 +13,19 @@ import torch
 __all__ = ["words_to_tensor", "tensor_to_words", "to_i32"]
 
 
-def words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
+def words_to_tensor(words: np.ndarray, device, size: int | None = None) -> torch.Tensor:
     """(n,) numpy uint32 -> (n,) int32 tensor on `device`, same bits. On the
-    CPU the tensor shares a writable array's memory."""
+    CPU the tensor shares a writable array's memory. With `size` (>= n) the
+    tensor has `size` words: the n words are copied straight into the head
+    of a fresh tensor, and its tail is zeroed on `device`."""
     words = np.require(words, dtype=np.uint32, requirements=["C", "W"])
-    return torch.from_numpy(words.view(np.int32)).to(device)
+    host = torch.from_numpy(words.view(np.int32))
+    if size is None:
+        return host.to(device)
+    out = torch.empty(size, dtype=torch.int32, device=device)
+    out[host.shape[0] :].zero_()
+    out[: host.shape[0]].copy_(host)
+    return out
 
 
 def tensor_to_words(t: torch.Tensor) -> np.ndarray:

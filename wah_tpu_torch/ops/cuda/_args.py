@@ -32,13 +32,13 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def device_ints(values, device) -> torch.Tensor:
-    """(len(values),) int32 on `device` holding the Python ints `values`,
+def device_ints(values, device, dtype=torch.int32) -> torch.Tensor:
+    """(len(values),) `dtype` on `device` holding the Python ints `values`,
     each written by a fill. torch.tensor(values, device=...) would copy
     them from pageable host memory, which a CUDA graph cannot capture; a
     fill carries its value in the launch, so a captured pipeline replays
     with the same arguments."""
-    out = torch.empty(len(values), dtype=torch.int32, device=device)
+    out = torch.empty(len(values), dtype=dtype, device=device)
     for i, v in enumerate(values):
         out[i].fill_(v)
     return out

@@ -12,7 +12,8 @@ report, is kept beside the library as a .log file. A failed build raises
 with nvcc's output; nothing falls back to the plain versions.
 
 Every C entry takes device pointers and the CUDA stream as void*, sizes
-as int, and returns cudaGetLastError() after its launch.
+as int (a stream's length, which may pass 2^31, as long long), and
+returns cudaGetLastError() after its launch.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry -> argument types; every entry ends with the stream
 _SIGNATURES = {
     "wah_encode_tiles": [_P, _P, _P, _P, _N, _P],
@@ -45,6 +47,7 @@ _SIGNATURES = {
     "wah_prescan_words": [_P, _P, _P, _P, _N, _N, _P],
     "wah_decode_blocks": [_P, _P, _P, _P, _N, _N, _P],
     "wah_rows_scan": [_P, _P, _P, _P, _P, _N, _N, _N, _N, _P],
+    "wah_check_stream": [_P, _L, _P, _P],
 }
 
 

@@ -22,9 +22,10 @@ costs one check. The names the port records:
 
   wah.compress, wah.decompress            a whole WahCodec call (the top
                                           level: one call id each)
-  wah.compress.pad, wah.decompress.pad    the copy to whole blocks (bytes)
-  wah.decompress.validate                 checked_stream (bytes)
-  wah.decompress.count                    stream_chunks
+  wah.compress.pad                        the copy to whole blocks (bytes)
+  wah.decompress.validate                 V1's check and count of the stream
+                                          on the device, and the host's read
+                                          of its result (bytes of the stream)
   wah.{compress,decompress}.to_device     the PhaseTimer phases; the copies
   wah.{compress,decompress}.kernel        carry the bytes that cross
   wah.{compress,decompress}.from_device
