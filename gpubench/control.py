@@ -7,7 +7,10 @@ has to find the control wrong: `correct` false.
 
 --ops defaults to the cell's check sample, the number of outputs a run
 compares in full. Needs the device the inputs are drawn on (CUDA); the
-benchmark's own runs never run this.
+benchmark's own runs never run this. A cell on more than one chip runs
+its control on rank 0 alone, in this process: its driver is built with
+rank 0 and the cell's world, no process group is brought up, and
+control_step makes no collective call (gpubench/driver.py).
 """
 import argparse
 import json
@@ -21,7 +24,8 @@ from gpubench import harness
 def run_control(cell: harness.Cell, seed: int, ops: int, device) -> dict:
     traffic = cell.traffic
     module = harness.load_module(cell.root / "drivers" / f"{traffic['driver']}.py")
-    driver = module.Driver(cell.config, traffic, seed, torch.device(device))
+    driver = module.Driver(cell.config, traffic, seed, torch.device(device),
+                           rank=0, world=cell.chips)
     driver.make_inputs()
     records, reservoir = [], harness.Reservoir(int(traffic["check_sample"]), seed)
     for i in range(ops):

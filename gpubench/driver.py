@@ -19,6 +19,19 @@ the program. The harness calls, in order:
 `control_step(i)` answers operation i with the configuration's control
 (gpubench/reference/control.py) in the program's place; only
 `python -m gpubench.control` and the tests call it.
+
+Ranks. A cell on `chips` > 1 runs one process a rank (gpubench/rank.py):
+the driver of rank r is built with `rank` = r, `world` = chips and the
+device cuda:r (every rank on the CPU in the tests), and the default
+torch.distributed group spans the ranks (NCCL on CUDA, gloo on the CPU).
+Every rank calls make_inputs, prepare, step(i) for the same i in the same
+order, and free; prepare and step may make collective calls on the
+default group, the others make none. check runs on rank 0 alone, on rank
+0's outputs and on the operations that failed on no rank; the control
+runs on rank 0 alone too (`rank` 0, `world` = chips, no group). A step
+that raises on any rank fails that operation. A rank that raises before
+a collective its peers enter leaves them waiting until the timeout
+(gpubench/rank.py), and the run ends with no result.
 """
 from __future__ import annotations
 
@@ -52,12 +65,14 @@ class Driver:
     op_span = "op"
 
     def __init__(self, config: dict, traffic: dict, seed: int, device: torch.device,
-                 span: Spans | None = None):
+                 span: Spans | None = None, rank: int = 0, world: int = 1):
         self.config = config
         self.traffic = traffic
         self.seed = seed
         self.device = torch.device(device)
         self.span = span or Spans()
+        self.rank = rank
+        self.world = world
 
     def make_inputs(self) -> None:
         raise NotImplementedError

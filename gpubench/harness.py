@@ -7,14 +7,34 @@ entries, never by editing a file here:
 
   configs/<config>.json           the deployment's sizes and guarantees
   traffic/<traffic>.json          the mix: its driver, parameters, sample
-                                  sizes, and how each end-to-end metric is
-                                  taken from the window's operations
-  drivers/<driver>.py             class Driver (gpubench/driver.py)
+                                  sizes, how each end-to-end metric is
+                                  taken from the window's operations, and
+                                  under "tests" what the tests need, which
+                                  a timed run never reads: "cpu" and
+                                  "card", each {"config": {...},
+                                  "traffic": {...}}, the overrides that
+                                  cut the cell to a test's size on the CPU
+                                  and on one card; "faults",
+                                  {"planter": <name>, "cases": [...]}, the
+                                  faults its timed path can have
+  drivers/<driver>.py             class Driver (gpubench/driver.py, which
+                                  also states what a rank's driver does)
   stats/<stat>.py                 value(ops, window_s, params): an
                                   end-to-end metric from the window
   layer_metrics/<metric>.py       read(ctx): a per-layer metric from the
                                   traced window, or None where it finds
                                   nothing to read
+  tests/faults/<planter>.py       plant(fault, setattr): break the program
+                                  under the timed path (the tests only)
+
+A cell on more than one chip (`chips` > 1 in the manifest, at most a
+quarter of the cells and always one) runs one process a rank
+(gpubench/rank.py): this process is rank 0 on cuda:0, and the others
+follow its commands, one operation at a time. An operation that fails on
+any rank fails; `memory_peak_bytes` is the largest rank's; the forbidden
+modules of every rank are checked (ForbiddenModules). The trace, the
+spans, the check and the metrics are rank 0's: a multi-chip cell's
+device trace and idle share are those of rank 0's card.
 """
 from __future__ import annotations
 
@@ -162,6 +182,21 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
+class ForbiddenModules(RuntimeError):
+    """Another rank's process loaded what the port must not load:
+    `found` is {rank: module names}."""
+
+    def __init__(self, found: dict):
+        super().__init__(f"modules loaded that the port must not load: {found}")
+        self.found = found
+
+
+def memory_peak(device: torch.device) -> int:
+    """The device's peak of allocated bytes since its last reset (0 on the
+    CPU, which keeps none)."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
 def _profiler(device: torch.device):
     # one start and stop a profiler: its note that a cycle's end clears the
     # events says nothing here
@@ -210,12 +245,26 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              started: float | None = None) -> dict:
     """One run of `cell` on `device`: the result line as a dict.
     `started`: time.perf_counter() at the process's start, where /proc
-    cannot tell it."""
+    cannot tell it. A cell on more than one chip runs its other ranks in
+    processes of their own (gpubench/rank.py); rank 0 is this one, on
+    cuda:0 or the CPU."""
     device = torch.device(device)
+    if cell.chips == 1:
+        return _run(cell, seed, seconds, trace, device, started, None)
+    from .rank import Ranks
+
+    if device.type == "cuda":
+        device = torch.device("cuda", 0)
+    with Ranks(cell, seed, device) as ranks:
+        return _run(cell, seed, seconds, trace, device, started, ranks)
+
+
+def _run(cell, seed, seconds, trace, device, started, ranks) -> dict:
     traffic = cell.traffic
     module = load_module(cell.root / "drivers" / f"{traffic['driver']}.py")
     spans = Spans()
-    driver = module.Driver(cell.config, traffic, seed, device, spans)
+    driver = module.Driver(cell.config, traffic, seed, device, spans,
+                           rank=0, world=cell.chips)
     driver.make_inputs()
     driver.prepare()
     trace_from = int(traffic.get("trace_skip", 1))
@@ -229,6 +278,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     driver.sync()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    if ranks is not None:
+        ranks.ready()
 
     reservoir = Reservoir(int(traffic["check_sample"]), seed)
     ops: list[Op] = []
@@ -245,6 +296,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             prof.start()
             spans.active = True
         spans.index = i
+        if ranks is not None:
+            ranks.command(i)
         t0 = time.perf_counter()
         try:
             with spans(driver.op_span):
@@ -270,7 +323,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         prof.stop()
         spans.active = False
     window_s = (ops[-1].t1 - t_start) if ops else 0.0
-    memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    memory_peak_bytes = memory_peak(device)
+    if ranks is not None:
+        memory_peak_bytes = max([memory_peak_bytes] + _fold(ranks.finish(), ops))
 
     ctx, breakdown = (None, None)
     if prof is not None:
@@ -278,7 +333,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     driver.free()
     failed = sum(1 for op in ops if op.error)
     checks = {"ops_failed": (failed, 0)}
-    checks.update(driver.check([op for op in ops if not op.error], reservoir.items))
+    kept = [(k, out) for k, out in reservoir.items if not ops[k].error]
+    checks.update(driver.check([op for op in ops if not op.error], kept))
     correct = bool(ops) and all(v <= lim for v, lim in checks.values())
 
     metrics = {}
@@ -302,7 +358,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         "platform": "gpu" if device.type == "cuda" else device.type,
         "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "count": cell.chips,
-        "memory_peak_bytes": memory_peak,
+        "memory_peak_bytes": memory_peak_bytes,
     }
     if trace:
         dev["busy_s"] = ctx.busy_us * 1e-6
@@ -313,3 +369,19 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         result["breakdown"] = breakdown
     result["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}
     return result
+
+
+def _fold(reports: list[dict], ops: list[Op]) -> list[int]:
+    """The other ranks' reports into rank 0's operations: each that failed
+    on a rank fails. Returns their memory peaks. Raises ForbiddenModules."""
+    found = {rep["rank"]: rep["forbidden"] for rep in reports if rep["forbidden"]}
+    if found:
+        raise ForbiddenModules(found)
+    for rep in reports:
+        if rep["ran"] != len(ops):
+            raise RuntimeError(f"rank {rep['rank']} ran {rep['ran']} operations, rank 0 "
+                               f"{len(ops)}")
+        for k in rep["failed"]:
+            if not ops[k].error:
+                ops[k].error = f"failed on rank {rep['rank']}: {rep['first_error']}"
+    return [rep["memory_peak_bytes"] for rep in reports]

@@ -1,8 +1,9 @@
 """Host time of one WahCodec round trip outside the six phases that the
 program times itself (PhaseTimings of compress and of decompress:
-to_device, kernel, from_device): padding, validation, chunk count and
-allocation. The benchmark's host clock per round trip minus the phases,
-in ms, the mean over the window's round trips."""
+to_device, kernel, from_device): padding, the stream's check on the
+device and its read, and allocation. The benchmark's host clock per
+round trip minus the phases, in ms, the mean over the window's round
+trips."""
 
 from gpubench.drivers.api_roundtrip import PHASES
 

@@ -7,7 +7,10 @@ end-to-end metrics, with --trace 1 its per-layer metrics read from a
 torch.profiler trace of a fixed number of the window's operations. The
 numbers compared with the reference come last, on standard error and
 under "checks" in the line. Exits non-zero, printing no result, without
-as many CUDA devices as the cell asks for, or if JAX or wah_tpu was loaded.
+as many CUDA devices as the cell asks for, if JAX or wah_tpu was loaded
+(by any rank of a cell on more than one chip), or if the run failed: a
+rank process that ends early or stops answering ends the run within
+gpubench.rank's TIMEOUT_S and GRACE_S.
 """
 import time
 
@@ -17,6 +20,7 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
+import traceback  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 CHECKOUT = Path(__file__).resolve().parents[1]
@@ -49,9 +53,21 @@ def main(argv=None) -> int:
         print(f"gpubench: {args.workload} needs {cell.chips} CUDA device(s), found {have}",
               file=sys.stderr)
         return 2
-    result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda",
-                              started=_STARTED)
-    found = harness.forbidden_modules()
+    try:
+        result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda",
+                                  started=_STARTED)
+    except harness.ForbiddenModules as e:
+        found = {f"rank {r}": names for r, names in e.found.items()}
+    except Exception:
+        if cell.chips == 1:
+            raise
+        # after a rank's failure a collective of the program may never end:
+        # exit without waiting on the process group's teardown
+        traceback.print_exc(file=sys.stderr)
+        sys.stderr.flush()
+        os._exit(1)
+    else:
+        found = harness.forbidden_modules()
     if found:
         print(f"gpubench: modules loaded that the port must not load: {found}", file=sys.stderr)
         return 3

@@ -1,15 +1,15 @@
 """The cells on the card at small sizes (marker `cuda`; they skip without
-a CUDA device): each run correct, and a traced run that reads the device.
+as many CUDA devices as a cell asks for): each run correct, and a traced
+run that reads the device. Each cell's sizes here are the "card"
+overrides of the "tests" key of its traffic file.
 
     python3 -m pytest gpubench/tests -m cuda
 """
-import dataclasses
-
 import pytest
 import torch
 
 from gpubench import harness
-from gpubench.tests.test_gpubench_harness import CELLS, SEED, SMALL
+from gpubench.tests.cells import SEED, SIZED, small_cell
 
 
 @pytest.fixture
@@ -19,23 +19,12 @@ def card():
     return torch.device("cuda")
 
 
-# the device cell at 2,048 blocks (8 MB), where K1-K4 outweigh the small
-# torch operations among the trace's top ten
-ON_CARD = {"device-roundtrip-sweep": {"blocks": 2048}}
-
-
-def small(name):
-    cfg, traffic = SMALL[name]
-    cfg = {**cfg, **ON_CARD.get(name, {})}
-    cell = harness.load_cell(name)
-    return dataclasses.replace(cell, config={**cell.config, **cfg},
-                               traffic={**cell.traffic, **traffic, "trace_ops": 4})
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", SIZED)
 def test_cell_on_the_card(card, name):
-    cell = small(name)
+    cell = small_cell(name, "card")
+    if torch.cuda.device_count() < cell.chips:
+        pytest.skip(f"{name} needs {cell.chips} CUDA devices")
     r = harness.run_cell(cell, SEED, 0.5, False, card)
     assert r["correct"] and r["device"]["platform"] == "gpu"
     t = harness.run_cell(cell, SEED, 0.5, True, card)

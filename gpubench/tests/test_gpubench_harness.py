@@ -1,13 +1,13 @@
 """The harness on the CPU, at small sizes: the manifest against the
-contract's shape, a cell added as data files alone, the controls found
-wrong, and every cell's run with its timed path broken found wrong."""
-import dataclasses
+contract's shape, every cell's test sizes in its own files, a cell added
+as data files alone, the controls found wrong, and every cell's run with
+its timed path broken found wrong."""
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,25 +15,11 @@ import torch
 
 from gpubench import harness
 from gpubench.control import run_control
+from gpubench.tests.cells import (CELLS, FAULTS, MANIFEST, REPO, ROOT, SEED, SIZED,
+                                  break_timed_path, copy_with_stub, files_of, small_cell,
+                                  sizes_of)
 
-ROOT = Path(__file__).resolve().parents[1]
-REPO = ROOT.parent
-MANIFEST = json.loads((REPO / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in MANIFEST["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-SEED = 2**31 + 12345
-# each cell cut to a size the CPU runs in a moment: configuration and traffic
-SMALL = {
-    "api-roundtrip-2e-4": ({"blocks": 3}, {"check_sample": 2, "trace_ops": 2}),
-    "device-roundtrip-sweep": ({"blocks": 3}, {"check_sample": 2, "trace_ops": 2}),
-}
-
-
-def small_cell(name):
-    cfg, traffic = SMALL[name]
-    cell = harness.load_cell(name)
-    return dataclasses.replace(cell, config={**cell.config, **cfg},
-                               traffic={**cell.traffic, **traffic})
 
 
 def test_manifest_shape():
@@ -51,8 +37,13 @@ def test_manifest_shape():
     assert e2e["setup_s"]["bound"] <= 0.25 and "workloads" not in e2e["setup_s"]
     for m in e2e.values():
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+    # one chip or four; at most a quarter of the cells on four, and always one
+    assert all(w["chips"] in (1, 4) for w in MANIFEST["workloads"])
+    assert sum(w["chips"] == 4 for w in MANIFEST["workloads"]) <= max(1, len(CELLS) // 4)
+    pairs = [(w["config"], w["traffic"]) for w in MANIFEST["workloads"]]
+    assert len(pairs) == len(set(pairs))
     for w in MANIFEST["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert len(w["why"]) <= 200
         cell = harness.load_cell(w["name"])
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s"} and len(cell.end_to_end) >= 2
@@ -72,6 +63,22 @@ def _run(cell, trace=False, seconds=0.3):
 
 
 @pytest.mark.parametrize("name", CELLS)
+def test_each_cell_states_its_test_sizes(name):
+    """The traffic file's "tests" key: the sizes of the cell's CPU and card
+    tests and the faults of its timed path, with a planter for them."""
+    tests = sizes_of(name)
+    assert tests is not None, f"the traffic file of {name} has no 'tests' key"
+    missing = {"cpu", "card", "faults"} - set(tests)
+    assert not missing, f"the 'tests' key of {name}'s traffic file lacks {sorted(missing)}"
+    for where in ("cpu", "card"):
+        assert set(tests[where]) <= {"config", "traffic"}
+        assert "tests" not in tests[where].get("traffic", {})
+    assert tests["faults"]["cases"]
+    cell = small_cell(name)
+    assert (cell.root / "tests" / "faults" / f"{tests['faults']['planter']}.py").exists()
+
+
+@pytest.mark.parametrize("name", SIZED)
 @pytest.mark.parametrize("trace", [False, True])
 def test_cell_runs_and_is_correct_on_the_cpu(name, trace):
     r = _run(small_cell(name), trace)
@@ -101,45 +108,37 @@ def test_same_seed_same_inputs():
         assert abs(d - 2.0 ** -e) < 4 * (2.0 ** -e / (3 * 992 * 32)) ** 0.5 + 1e-4
 
 
-def test_a_cell_added_as_data_alone(tmp_path):
-    """A stub configuration, traffic mix and per-layer metric, dropped as
-    new files into a copy of the benchmark with new manifest entries, are
-    found without editing any file that was there."""
+@pytest.mark.parametrize("chips", [1, 4])
+def test_a_cell_added_as_data_alone(tmp_path, chips):
+    """A stub configuration, traffic mix, per-layer metric (on four chips
+    also a driver and a fault planter), dropped as new files into a copy of
+    the benchmark with new manifest entries, are found without editing any
+    file that was there, and pass every test of the copy that is
+    parametrised over cells, and its manifest's shape."""
+    name = copy_with_stub(tmp_path, chips)
     root = tmp_path / "gpubench"
-    shutil.copytree(ROOT, root, ignore=shutil.ignore_patterns("__pycache__"))
-    before = {p.relative_to(root): p.read_bytes() for p in root.rglob("*") if p.is_file()}
-    (root / "configs" / "stub-bitmaps.json").write_text(json.dumps(
-        {"name": "stub-bitmaps", "blocks": 2, "block_ints": 992, "reduced": []}))
-    (root / "traffic" / "stub-mix.json").write_text(json.dumps({
-        "driver": "device_roundtrip", "exponents": [2, 9], "check_sample": 2,
-        "trace_ops": 3, "end_to_end": {"device_GBps": {"stat": "rate", "count": "bytes",
-                                                       "scale": 1e-9}}}))
-    (root / "layer_metrics" / "stub.ops.py").write_text(
-        "def read(ctx):\n    return float(len(ctx.ops)) if ctx is not None else None\n")
-    manifest = json.loads(json.dumps(MANIFEST))
-    manifest["configs"].append({"name": "stub-bitmaps", "source": "stub", "why": "stub",
-                                "file": "gpubench/configs/stub-bitmaps.json", "reduced": []})
-    manifest["workloads"].append({"name": "stub-cell", "config": "stub-bitmaps",
-                                  "traffic": "stub-mix", "chips": 1, "why": "stub"})
-    for m in manifest["end_to_end"]:
-        if m["name"] == "device_GBps":
-            m["workloads"].append("stub-cell")
-    manifest["per_layer"].append({"name": "stub.ops", "unit": "ops", "better": "higher",
-                                  "source": "program_counter", "layer": "device",
-                                  "moves": "device_GBps", "workloads": ["stub-cell"]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(manifest))
-    cell = harness.load_cell("stub-cell", tmp_path / "BENCHMARK.json", root)
-    assert [m["name"] for m in cell.per_layer] == ["stub.ops"]
+    cell = harness.load_cell(name, tmp_path / "BENCHMARK.json", root)
+    assert cell.chips == chips and [m["name"] for m in cell.per_layer] == ["stub.op_ms"]
     plain = harness.run_cell(cell, SEED, 0.3, False, "cpu")
-    assert plain["correct"] and set(plain["metrics"]) == {"device_GBps", "setup_s"}
+    assert plain["correct"] and set(plain["metrics"]) == {m["name"] for m in cell.end_to_end}
     traced = harness.run_cell(cell, SEED, 0.3, True, "cpu")
-    assert traced["metrics"]["stub.ops"]["value"] == traced["attempted"]
-    after = {p.relative_to(root): p.read_bytes() for p in root.rglob("*")
-             if p.is_file() and "__pycache__" not in p.parts}
-    assert all(after[k] == v for k, v in before.items() if "__pycache__" not in k.parts)
+    assert traced["correct"] and traced["metrics"]["stub.op_ms"]["value"] > 0
+    # the copy's own tests on the copy's manifest, the program from here
+    p = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "no:randomly",
+         "gpubench/tests", "-k", f"{name} or test_manifest_shape"],
+        cwd=tmp_path, env={**os.environ, "PYTHONPATH": str(REPO)}, capture_output=True,
+        text=True, timeout=600)
+    assert p.returncode == 0, p.stdout[-4000:] + p.stderr[-4000:]
+    cases = len(json.loads((root / "traffic" / f"{name}.json").read_text())
+                ["tests"]["faults"]["cases"])
+    # the shape, the test sizes, two runs, the control, each fault; the card's skips
+    assert re.search(rf"\b{5 + cases} passed, 1 skipped\b", p.stdout), p.stdout[-2000:]
+    after = files_of(root)
+    assert all(after[k] == v for k, v in files_of(ROOT).items())
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", SIZED)
 def test_control_is_found_wrong(name):
     """Step 3 of how `correct` is decided, at a size a test run holds: the
     configuration's control (gpubench/reference/control.py) in the
@@ -149,56 +148,14 @@ def test_control_is_found_wrong(name):
     assert not result["correct"], result
 
 
-def _flip_first(words):
-    words = words.copy() if isinstance(words, np.ndarray) else words.clone()
-    words.reshape(-1)[0] ^= 1
-    return words
-
-
-def _faults(monkeypatch, fault):
-    """Break the timed path of a cell underneath: `unchanged` (the step
-    hands back its input), `half` (half of the batch left out), `altered`
-    (an answer altered where it is produced). Both cells run the same
-    kernels, the api cell under WahCodec."""
-    from wah_tpu_torch.ops.cuda import decode_kernel, encode_kernel
-
-    enc = encode_kernel.encode_padded
-    if fault == "unchanged":
-        def decode(words, m, cap, chunk_base=0):
-            n = cap // 1024 * 992
-            return words[:n].clone(), torch.tensor(n, dtype=torch.int32)
-        monkeypatch.setattr(decode_kernel, "decode", decode)
-    elif fault == "half":
-        def encode(ints, nv, chunk_base=0, stitch="auto"):
-            ints = ints.clone()
-            ints[ints.shape[0] // 2:] = 0
-            return enc(ints, nv, chunk_base, stitch)
-        monkeypatch.setattr(encode_kernel, "encode_padded", encode)
-    else:
-        def encode(ints, nv, chunk_base=0, stitch="auto"):
-            words, total = enc(ints, nv, chunk_base, stitch)
-            return _flip_first(words), total
-        monkeypatch.setattr(encode_kernel, "encode_padded", encode)
-
-
-@pytest.mark.parametrize("name", CELLS)
-@pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
+@pytest.mark.parametrize("name,fault", FAULTS)
 def test_a_broken_timed_path_is_found_wrong(monkeypatch, name, fault):
     """A whole run, past the look for a chip, with the program broken under
-    the timed path: `correct` comes out false."""
+    the timed path after set-up, on every rank (the cell's "faults": a
+    planter in gpubench/tests/faults/ and its cases): `correct` comes out
+    false."""
     cell = small_cell(name)
-    driver = harness.load_module(ROOT / "drivers" / f"{cell.traffic['driver']}.py").Driver
-    prepare = driver.prepare
-
-    def prepare_then_break(self):
-        prepare(self)  # set-up sound, the window's operations broken
-        _faults(monkeypatch, fault)
-
-    monkeypatch.setattr(driver, "prepare", prepare_then_break)
-    monkeypatch.setattr(harness, "load_module",
-                        lambda path, _load=harness.load_module:
-                        type("M", (), {"Driver": driver}) if path.parent.name == "drivers"
-                        else _load(path))
+    break_timed_path(monkeypatch, cell, fault)
     r = _run(cell)
     assert r["attempted"] > 0 and not r["correct"], r["checks"]
 
