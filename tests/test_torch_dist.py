@@ -71,8 +71,8 @@ def test_the_cases_are_the_ranks_cases():
     """The ranks run every case below, on the bitmaps of conftest's
     generators (their copies in test_torch_dist_cases)."""
     assert set(ROUNDTRIPS) | {"totals_sum", "span_partition", "corrupt_stream", "bounded_payload",
-                              "overflow_flag", "estimate_word_cap", "host_shard_bitmap"
-                              } == set(cases.CASES)
+                              "overflow_flag", "estimate_word_cap", "host_shard_bitmap",
+                              "configs4_trip"} == set(cases.CASES)
     for name, make in ROUNDTRIPS.items():
         np.testing.assert_array_equal(cases.ROUNDTRIPS[name](), make())
     for dens, seed in cases.ESTIMATE_DENSITIES:
@@ -163,6 +163,25 @@ def test_two_ranks_host_shard_bitmap_rows(saved):
         assert int(out["rank"]) == r
         rows = out["data"].reshape(-1, BLOCK_INTS)
         np.testing.assert_array_equal(out["rows"], rows[r * 3 : (r + 1) * 3].reshape(-1))
+
+
+def test_two_ranks_configs4_trip_against_the_plain_reference(saved):
+    """BASELINE configs[4]'s operation (gpubench's sharded-configs4 cell) at
+    P(bit) = 0.01, the last rank holding padding: every rank's stream and
+    gathered bitmap == the plain torch reference and golden, word for word."""
+    from gpubench.reference_torch import wah_torch
+
+    data = random_bitmap(cases.CONFIGS4_INTS, density=0.01, seed=41)
+    ref = golden.encode(data)
+    ints = torch.from_numpy(data.view(np.int32))
+    np.testing.assert_array_equal(tensor_to_words(wah_torch.encode(ints)), ref)
+    for out in saved("configs4_trip"):
+        np.testing.assert_array_equal(out["data"], data)
+        assert int(out["blocks"]) * BLOCK_CHUNKS > golden.chunk_count(len(data)) + BLOCK_CHUNKS
+        np.testing.assert_array_equal(out["stream"], ref)
+        assert not out["past_total"].any() and not bool(out["overflow"])
+        assert int(out["n_chunks"]) == golden.chunk_count(len(data))
+        np.testing.assert_array_equal(out["bitmap"], data)
 
 
 def test_two_ranks_dry_run(saved):

@@ -7,12 +7,14 @@ of `python -m wah_tpu_torch.parallel N --save DIR --cases
 test_torch_dist_cases` run each one, and write its arrays to
 DIR/<case>.rank<r>.npz for test_torch_dist.py to hold against wah_tpu.
 COMPACT_TOTALS and compact_case give stitch_global's compaction a payload
-at edge totals and its numpy result.
+at edge totals and its numpy result. CONFIGS4_INTS sizes the configs4_trip
+case, BASELINE configs[4]'s operation (gpubench's sharded-configs4 cell)
+at a size whose block count does not split evenly over the ranks.
 """
 import numpy as np
 
 from wah_tpu_torch import golden
-from wah_tpu_torch.constants import BLOCK_INTS
+from wah_tpu_torch.constants import BLOCK_CHUNKS, BLOCK_INTS
 from wah_tpu_torch.convert import tensor_to_words, words_to_tensor
 from wah_tpu_torch.parallel import (
     decode_sharded,
@@ -23,7 +25,7 @@ from wah_tpu_torch.parallel import (
     stitch_global,
     stitch_word_cap,
 )
-from wah_tpu_torch.parallel._comm import rank_and_size
+from wah_tpu_torch.parallel._comm import all_gather, rank_and_size
 
 
 def random_bitmap(n_ints: int, density: float, seed: int = 1337) -> np.ndarray:
@@ -130,6 +132,34 @@ def _host_shard_bitmap(codec, device, group):
             "rank": np.int64(rank)}
 
 
+# 4 blocks and 300 ints: 5 blocks of chunks, padded to a multiple of the
+# ranks, so that the last rank holds padding at 2 and 4 ranks
+CONFIGS4_INTS = 4 * BLOCK_INTS + 300
+
+
+def _configs4_trip(codec, device, group):
+    """One operation of the sharded-configs4 cell on this rank's shard of a
+    P(bit) = 0.01 bitmap: encode_sharded, stitch_global bounded by
+    stitch_word_cap, decode_sharded of the replicated stream, the all-gather
+    of the ranks' spans cut to the bitmap."""
+    rank, D = rank_and_size(group)
+    data = random_bitmap(CONFIGS4_INTS, 0.01, seed=41)
+    nv = golden.chunk_count(data.shape[0])
+    nb = -(-(-(-nv // BLOCK_CHUNKS)) // D) * D
+    n_l = nb // D * BLOCK_INTS
+    padded = np.zeros(nb * BLOCK_INTS, np.uint32)
+    padded[: data.shape[0]] = data
+    shard = words_to_tensor(padded[rank * n_l : (rank + 1) * n_l], device)
+    words_l, totals = encode_sharded(shard, nv, group)
+    stream, total, overflow = stitch_global(words_l, totals, stitch_word_cap(totals), group)
+    m = int(total)
+    ints_l, n_chunks = decode_sharded(stream, m, nb * BLOCK_CHUNKS, group)
+    bitmap = all_gather(ints_l, group).reshape(-1)[: data.shape[0]]
+    return {"data": data, "blocks": np.int64(nb), "stream": tensor_to_words(stream[:m]),
+            "past_total": tensor_to_words(stream[m:]), "overflow": np.bool_(overflow),
+            "n_chunks": np.int64(n_chunks), "bitmap": tensor_to_words(bitmap)}
+
+
 ROUNDTRIPS = {  # tests/test_dist.py:43-69, 125-130
     "random": lambda: random_bitmap(16 * BLOCK_INTS, 1 / 16),
     "clustered": lambda: clustered_bitmap(16 * BLOCK_INTS),
@@ -150,6 +180,7 @@ CASES = {
     "overflow_flag": _overflow_flag,
     "estimate_word_cap": _estimate_word_cap,
     "host_shard_bitmap": _host_shard_bitmap,
+    "configs4_trip": _configs4_trip,
 }
 
 

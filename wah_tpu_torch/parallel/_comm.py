@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
+
 __all__ = ["rank_and_size", "all_gather"]
 
 
@@ -28,16 +30,22 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """(k,) tensor, the same k on every rank -> (D, k) on t's device, row d
     being rank d's tensor. With no process group up the result is a view
     of `t`. all_gather.routes counts the collectives by route: "device"
-    (NCCL), "staged" (a CUDA tensor through host memory), "host"."""
+    (NCCL), "staged" (a CUDA tensor through host memory), "host". Each
+    collective is a wah.gather span, counting its route and the bytes it
+    delivered to this rank (all D rows, its own included)."""
     if not dist.is_initialized():
         return t[None]
     t = t.contiguous()
     staged = t.device.type == "cuda" and dist.get_backend(group) != dist.Backend.NCCL
-    src = t.cpu() if staged else t
-    out = src.new_empty((dist.get_world_size(group), *src.shape))
-    dist.all_gather(list(out.unbind(0)), src, group=group)
-    all_gather.routes["staged" if staged else "device" if src.is_cuda else "host"] += 1
-    return out.to(t.device)
+    route = "staged" if staged else "device" if t.is_cuda else "host"
+    with span("wah.gather", route=route) as s:
+        src = t.cpu() if staged else t
+        out = src.new_empty((dist.get_world_size(group), *src.shape))
+        dist.all_gather(list(out.unbind(0)), src, group=group)
+        all_gather.routes[route] += 1
+        out = out.to(t.device)
+        s.set(bytes=out.numel() * out.element_size())
+    return out
 
 
 all_gather.routes = {"device": 0, "staged": 0, "host": 0}

@@ -26,6 +26,11 @@ one process. Every other function takes a process group (None: the
 default group, or a world of one when none is up); the gathers follow
 _comm's rule: NCCL on the device, any other backend through host memory.
 gather_stream and gather_bitmap give the exact host arrays on every rank.
+
+Spans (utils.profiling, recorded only while a profiler records):
+wah.sharded.encode, wah.sharded.word_cap, wah.sharded.stitch and
+wah.sharded.decode around the calls of those names; the pipelines'
+wah.encode and wah.decode and _comm's wah.gather nest inside them.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from ..constants import BLOCK_CHUNKS, BLOCK_INTS
 from ..convert import tensor_to_words
 from ..golden import chunk_count
 from ..ops.cuda import decode_kernel, encode_kernel, stitch2
+from ..utils.profiling import span
 from ._comm import all_gather, rank_and_size
 from .multihost import local_device
 
@@ -84,9 +90,10 @@ def encode_sharded(
     totals (D,) int32), every rank holding the same block count. The pair
     is the distributed form of the stream (wah_tpu's encode_sharded);
     stitch_global or gather_stream assemble it."""
-    rank, _ = rank_and_size(group)
-    words_l, total_l = encode_local(ints_l, n_valid_chunks, rank)
-    return words_l, all_gather(total_l, group).reshape(-1)
+    with span("wah.sharded.encode"):
+        rank, _ = rank_and_size(group)
+        words_l, total_l = encode_local(ints_l, n_valid_chunks, rank)
+        return words_l, all_gather(total_l, group).reshape(-1)
 
 
 def stitch_global(
@@ -100,21 +107,25 @@ def stitch_global(
     eff is below the capacity and some rank has more than eff live words;
     the stream is then truncated and the caller retries with a larger
     bound. total is always right (it comes from the totals), and the
-    stream is zero past its live words.
+    stream is zero past its live words. Its wah.sharded.stitch span
+    counts the bytes of the gathered payload, D * eff words.
     """
-    dev = words_l.device
-    totals = torch.as_tensor(totals).to(dev, _I32)
-    D = totals.shape[0]
-    if D != rank_and_size(group)[1]:
-        raise ValueError(f"{D} totals for a world of {rank_and_size(group)[1]} ranks")
-    cap_l = words_l.shape[0]
-    eff = cap_l if word_cap is None else min(int(word_cap), cap_l)
-    if eff < cap_l:
-        overflow = totals.max() > eff
-    else:
-        overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    stream = compact_payload(all_gather(words_l[:eff], group), totals)
-    return stream, totals.sum(dtype=_I32), overflow
+    with span("wah.sharded.stitch") as s:
+        dev = words_l.device
+        totals = torch.as_tensor(totals).to(dev, _I32)
+        D = totals.shape[0]
+        if D != rank_and_size(group)[1]:
+            raise ValueError(f"{D} totals for a world of {rank_and_size(group)[1]} ranks")
+        cap_l = words_l.shape[0]
+        eff = cap_l if word_cap is None else min(int(word_cap), cap_l)
+        if eff < cap_l:
+            overflow = totals.max() > eff
+        else:
+            overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        payload = all_gather(words_l[:eff], group)
+        s.set(bytes=payload.numel() * payload.element_size())
+        stream = compact_payload(payload, totals)
+        return stream, totals.sum(dtype=_I32), overflow
 
 
 def compact_payload(segs: torch.Tensor, totals: torch.Tensor) -> torch.Tensor:
@@ -148,11 +159,12 @@ def compact_payload(segs: torch.Tensor, totals: torch.Tensor) -> torch.Tensor:
 def stitch_word_cap(totals) -> int:
     """Exact payload bound from the per-rank totals (read on the host): the
     most live words of a rank, rounded up to a 1024-word tile."""
-    if isinstance(totals, torch.Tensor):
-        t = int(totals.max())
-    else:
-        t = int(np.max(np.asarray(totals)))
-    return max(1024, -(-t // 1024) * 1024)
+    with span("wah.sharded.word_cap"):
+        if isinstance(totals, torch.Tensor):
+            t = int(totals.max())
+        else:
+            t = int(np.max(np.asarray(totals)))
+        return max(1024, -(-t // 1024) * 1024)
 
 
 def estimate_word_cap(data: np.ndarray, nb_l: int) -> int:
@@ -212,10 +224,11 @@ def decode_sharded(
     """Distributed decode of the replicated stream words[:m]: this rank's
     span of chunk_capacity // D chunks -> (ints_l, n_chunks) as decode_local.
     chunk_capacity is a multiple of 32 * D."""
-    rank, D = rank_and_size(group)
-    if chunk_capacity % (32 * D):
-        raise ValueError(f"chunk_capacity {chunk_capacity} is not a multiple of 32 x {D} ranks")
-    return decode_local(words, m, chunk_capacity // D, rank)
+    with span("wah.sharded.decode"):
+        rank, D = rank_and_size(group)
+        if chunk_capacity % (32 * D):
+            raise ValueError(f"chunk_capacity {chunk_capacity} is not a multiple of 32 x {D} ranks")
+        return decode_local(words, m, chunk_capacity // D, rank)
 
 
 def gather_bitmap(ints_l: torch.Tensor, n_ints: int, group=None) -> np.ndarray:

@@ -31,6 +31,19 @@ costs one check. The names the port records:
   wah.{compress,decompress}.from_device
   wah.encode                              encode_padded's pipeline, issued
   wah.decode                              decode's pipeline, issued
+  wah.sharded.encode                      parallel.encode_sharded (holds
+                                          wah.encode and the totals' gather)
+  wah.sharded.word_cap                    parallel.stitch_word_cap: the host
+                                          read of the totals
+  wah.sharded.stitch                      parallel.stitch_global: the payload's
+                                          gather, its compaction and the host
+                                          read of the stream's end (bytes of
+                                          the gathered payload)
+  wah.sharded.decode                      parallel.decode_sharded (holds
+                                          wah.decode)
+  wah.gather                              one collective of parallel._comm
+                                          (route; bytes delivered to this
+                                          rank, its own row included)
 """
 from __future__ import annotations
 
