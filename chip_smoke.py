@@ -85,6 +85,14 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
               decompress traced by profiling.trace: the device-busy share
               of the traced window and the five device operations that took
               the most time; steps that a capture must refuse (a host read)
+  6c. copies  the yardstick of wah_tpu_torch.convert's pinned staging ring
+              on the 992 MB sweep bitmap: the copy engine's GB/s from
+              pinned memory, whole and in 4-64 MiB chunks; the pageable
+              copies without the ring; the host's copies between pageable
+              and pinned memory, into warm and into fresh pages, on torch's
+              intra-op threads and on one thread; the staged copies at 2
+              and 3 buffers of 8-128 MiB, a buffer a chunk (words checked);
+              one copy of 64 KiB to 32 MiB staged and direct, in us
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed. The second-to-last line is {"kernels": [...]}, the last
@@ -94,7 +102,8 @@ For work on a kernel, `python3 chip_smoke.py --kernels [--profile]` runs
 only phases 1-3e and the kernel and pipeline times of phases 6 and 6b
 (about a minute) and prints no result lines; `--profile` adds
 torch.profiler's per-kernel device times over a few launches, taken
-through profiling.trace. To time another tree of the
+through profiling.trace. `python3 chip_smoke.py --copies` runs only
+phases 1 and 6c (about two minutes). To time another tree of the
 port in the same call (two versions compare only within one call, on one
 card), copy this script into that tree and run it there.
 """
@@ -343,11 +352,19 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
                     help="only phases 1-3e and the kernel times of phase 6; no result lines")
+    ap.add_argument("--copies", action="store_true",
+                    help="only phase 1 and the host-device copy yardstick of phase 6c")
     ap.add_argument("--profile", action="store_true",
                     help="with --kernels: torch.profiler's device times of a few launches")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
+    if args.copies:
+        card = device_line()
+        print(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+        with Phase("6c copies"):
+            phase_copies(torch.device("cuda"), card)
+        return
     run(torch.device("cuda"), kernels_only=args.kernels, profile=args.profile)
 
 
@@ -461,6 +478,8 @@ def run(cuda, kernels_only: bool = False, profile: bool = False) -> None:
     print_bounds(card, ms, bounds)
     with Phase("6b profiling"):
         phase_profiling(cuda, card, proto, ms)
+    with Phase("6c copies"):
+        phase_copies(cuda, card)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1765,6 +1784,106 @@ def phase_host_times(cuda, card, index_times, segment_times):
           f"pipeline {q6_dev:.4f} ms; other queries "
           f"{ {k: round(v, 4) for k, v in t.items() if k not in ('build_s', 'q6_quantity_lt_24')} } s "
           f"on {card}", flush=True)
+
+
+def phase_copies(cuda, card):
+    """6c. The copy yardstick behind convert's staging ring, on the sweep
+    bitmap (992 MiB): the copy engine's rate from pinned memory whole and by
+    chunk size, today's pageable copies, the host's copies between pageable
+    and pinned memory (warm pages, fresh pages) on torch's intra-op threads
+    and on one thread, the staged copies at each ring shape, and the time of
+    one small copy staged and direct."""
+    import os
+
+    import torch
+
+    from wah_tpu_torch import convert
+
+    n = SWEEP_MAX_BLOCKS * 992
+    gb = n * 4 / 1e9
+    x = np.random.default_rng(SEED).integers(0, 1 << 32, size=n, dtype=np.uint32)
+    host = torch.from_numpy(x.view(np.int32))
+    warm = torch.from_numpy(np.ones(n, np.int32))
+    pinned = torch.empty(n, dtype=torch.int32, pin_memory=True)
+    pinned.copy_(host)
+    dev = torch.empty(n, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda)
+    cores = len(os.sched_getaffinity(0))
+
+    def fresh():
+        return torch.from_numpy(np.empty(n, np.int32))
+
+    def rate(fn, reps=3):
+        """Median and each GB/s of `reps` runs of fn(), waited for."""
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(n * 4 / (time.perf_counter() - t0) / 1e9)
+        return f"{sorted(out)[len(out) // 2]:.2f} ({', '.join(f'{r:.2f}' for r in out)})"
+
+    def chunked(dst, src, chunk):
+        for lo in range(0, n, chunk):
+            dst[lo : lo + chunk].copy_(src[lo : lo + chunk], non_blocking=True)
+
+    print(f"[6c copies] {gb:.4f} GB; host cores {cores}, torch intra-op threads "
+          f"{torch.get_num_threads()}; GB/s median (runs) on {card}", flush=True)
+    print(f"[6c copies] pinned DMA whole: H2D {rate(lambda: dev.copy_(pinned, non_blocking=True))}, "
+          f"D2H {rate(lambda: pinned.copy_(dev, non_blocking=True))}", flush=True)
+    for mib in (4, 8, 16, 32, 64):
+        c = mib << 18
+        print(f"[6c copies] pinned DMA in {mib} MiB chunks: H2D {rate(lambda: chunked(dev, pinned, c))}, "
+              f"D2H {rate(lambda: chunked(pinned, dev, c))}", flush=True)
+    print(f"[6c copies] pageable direct (before the ring): H2D {rate(lambda: dev.copy_(host))}, "
+          f"D2H into a fresh array {rate(lambda: dev.cpu())}", flush=True)
+    threads = torch.get_num_threads()
+    for label, nt in (("torch copy_", threads), ("torch copy_ 1 thread", 1)):
+        torch.set_num_threads(nt)
+        print(f"[6c copies] host {label}: warm -> pinned {rate(lambda: pinned.copy_(host))}, "
+              f"pinned -> warm {rate(lambda: warm.copy_(pinned))}, "
+              f"pinned -> fresh {rate(lambda: fresh().copy_(pinned))}", flush=True)
+    torch.set_num_threads(threads)
+    del pinned
+
+    def staged_out(ring):
+        out = fresh()
+        convert._stage_out(dev, out, ring, stream)
+        return out
+
+    for mib in (8, 16, 32, 64, 128):
+        for depth in (2, 3):
+            ring = convert._Ring([torch.empty(mib << 18, dtype=torch.int32, pin_memory=True)
+                                  for _ in range(depth)], [torch.cuda.Event() for _ in range(depth)])
+            h2d = rate(lambda: convert._stage_in(host, dev, ring, stream, mib << 18))
+            d2h = rate(lambda: staged_out(ring))
+            if not torch.equal(staged_out(ring), host):
+                raise AssertionError(f"staged copies at {mib} MiB x {depth}: words differ")
+            print(f"[6c copies] staged, {depth} x {mib} MiB: H2D {h2d}, D2H into a fresh array {d2h}",
+                  flush=True)
+            del ring
+    ring = convert._ring(cuda)
+    for words in (1 << 14, 1 << 16, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1 << 22, 1 << 23):
+        src, dst = host[:words], dev[:words]
+        us = {}
+        for label, fn in (
+            ("H2D direct", lambda: dst.copy_(src)),
+            ("H2D staged", lambda: convert._stage_in(src, dst, ring, stream, convert.H2D_CHUNK_WORDS)),
+            ("D2H direct", lambda: dst.cpu()),
+            ("D2H staged", lambda: convert._stage_out(
+                dst, torch.from_numpy(np.empty(words, np.int32)), ring, stream)),
+        ):
+            ts = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            us[label] = sorted(ts)[5] * 1e6
+        print(f"[6c copies] {words} words ({words * 4 / 2**20:g} MiB), us median of 10: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in us.items()), flush=True)
 
 
 if __name__ == "__main__":

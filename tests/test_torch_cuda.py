@@ -19,7 +19,13 @@ a chunk base, the bodies of eight ranks, and ShardedCodec("cuda") at a
 world of one; V1 (the stream check) against its plain twin on the cases
 of tests/test_torch_stream_check.py and on a 2^-4 protocol stream with
 bad words past its last 16 B vector, and WahCodec("cuda").decompress
-checking on the card alone; utils.profiling: K1's graph-replayed time against its
+checking on the card alone; convert's pinned staging ring: both directions
+bit-exact at 0 and 1 words, around the staging threshold and a chunk of
+each direction and past a ring's worth of chunks, with and without
+`size=` (the tail zeroed),
+results that keep their words and never alias the ring, the ring made
+once, WahCodec's copies counted by route and in the spans' staged_chunks,
+two threads round-tripping through one codec; utils.profiling: K1's graph-replayed time against its
 CUDA-event time, captured encode and decode pipelines replayed against
 eager calls, a capture with a host read refused (last in the file); the
 entry points and ShardedCodec() in a one-rank group on the card by
@@ -34,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from wah_tpu_torch import BitmapIndex, WahCodec, golden
+from wah_tpu_torch import BitmapIndex, WahCodec, convert, golden
 from wah_tpu_torch.constants import BLOCK_CHUNKS, BLOCK_INTS
 from wah_tpu_torch.convert import tensor_to_words, words_to_tensor
 from wah_tpu_torch.ops.cuda import decode_kernel as dk
@@ -830,6 +836,133 @@ def _event_ms(fn, iters: int = 20) -> float:
     ev1.record()
     ev1.synchronize()
     return ev0.elapsed_time(ev1) / iters
+
+
+# -- convert's pinned staging ring -----------------------------------------
+
+_C, _H = convert.CHUNK_WORDS, convert.H2D_CHUNK_WORDS
+_T, _D = convert.STAGE_MIN_WORDS, convert.RING_BUFFERS
+# empty, one word, the threshold and a chunk of each direction either side,
+# past a ring's worth of chunks from the device
+STAGE_LENGTHS = [0, 1, _T - 1, _T, _T + 1, _H - 1, _H, _H + 1, _C - 1, _C, _C + 1,
+                 (_D + 1) * _C + 12345]
+
+
+def _random_words(n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 1 << 32, size=n, dtype=np.uint32)
+
+
+@pytest.mark.parametrize("sized", [False, True])
+@pytest.mark.parametrize("n", STAGE_LENGTHS)
+def test_staged_copies_are_bit_exact_at_the_edges(cuda, n, sized):
+    words = _random_words(n, seed=n)
+    size = n + 2 * BLOCK_CHUNKS + 5 if sized else None
+    if sized:  # hand the copy a block that held other words
+        junk = torch.full((size,), -1, dtype=torch.int32, device=cuda)
+        del junk
+    before = dict(convert.copies)
+    t = words_to_tensor(words, cuda, size=size)
+    assert t.device.type == "cuda" and t.shape == ((n if size is None else size),)
+    if sized:
+        assert not bool(t[n:].any())
+    back = tensor_to_words(t[:n])
+    np.testing.assert_array_equal(back, words)
+    route = "staged" if n >= _T else "direct"
+    assert convert.copies[route] - before[route] == 2
+    assert convert.copies["chunks"] - before["chunks"] == (
+        convert.staged_chunks(n, cuda, to_device=True) + convert.staged_chunks(n, cuda, to_device=False))
+
+
+def test_staged_results_keep_their_words_and_never_alias_the_ring(cuda):
+    a, b = _random_words(_C + 7, seed=1), _random_words(_C + 7, seed=2)
+    got_a = tensor_to_words(words_to_tensor(a, cuda))
+    got_b = tensor_to_words(words_to_tensor(b, cuda))
+    rows = words_to_tensor(a[: 3 * _T], cuda).view(3, _T)
+    got_rows = tensor_to_words(rows[:, 1:])  # a non-contiguous view
+    np.testing.assert_array_equal(got_a, a)
+    np.testing.assert_array_equal(got_b, b)
+    np.testing.assert_array_equal(got_rows, a[: 3 * _T].reshape(3, _T)[:, 1:])
+    for buf in convert._ring(cuda).bufs:
+        for got in (got_a, got_b, got_rows):
+            assert not np.shares_memory(got, buf.numpy())
+
+
+def test_the_ring_is_made_once(cuda):
+    words = _random_words(_C + 1, seed=3)
+    words_to_tensor(words, cuda)
+    ring, rings = convert._ring(cuda), len(convert._rings)
+    ptrs = [buf.data_ptr() for buf in ring.bufs]
+    np.testing.assert_array_equal(tensor_to_words(words_to_tensor(words[::-1].copy(), cuda)),
+                                  words[::-1])
+    assert convert._ring(cuda) is ring and len(convert._rings) == rings
+    assert [buf.data_ptr() for buf in ring.bufs] == ptrs
+    assert len(ring.bufs) == _D and all(buf.is_pinned() and buf.numel() == _C for buf in ring.bufs)
+
+
+def _quarter_density(n: int, seed: int) -> np.ndarray:
+    """P(bit) = 2^-4, the api cell's density: the AND of four random words."""
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(4, n), dtype=np.uint32)
+    return w[0] & w[1] & w[2] & w[3]
+
+
+@pytest.mark.parametrize("blocks,route", [(3, "direct"), (_C // BLOCK_INTS + 5, "staged")])
+def test_the_codec_copies_by_route(cuda, blocks, route):
+    from wah_tpu_torch.utils import profiling
+
+    data = _quarter_density(blocks * BLOCK_INTS - 17, seed=blocks)
+    codec = WahCodec(cuda)
+    before = dict(convert.copies)
+    profiling.clear()
+    with profiling.trace():
+        stream, _ = codec.compress(data)
+        out, _ = codec.decompress(stream, out_ints=len(data))
+    np.testing.assert_array_equal(stream, golden.encode(data))
+    np.testing.assert_array_equal(out, data)
+    assert convert.copies[route] - before[route] == 4
+    got = {r.name: r.counts["staged_chunks"] for r in profiling.spans() if "staged_chunks" in r.counts}
+    want = {"wah.compress.to_device": blocks * BLOCK_INTS, "wah.compress.from_device": len(stream),
+            "wah.decompress.to_device": len(stream),
+            "wah.decompress.from_device": -(-len(data) // 31) * 31}  # whole groups of 31
+    assert got == {k: convert.staged_chunks(v, cuda, to_device=k.endswith("to_device"))
+                   for k, v in want.items()}
+    assert (sum(got.values()) > 0) == (route == "staged")
+    assert convert.copies["chunks"] - before["chunks"] == sum(got.values())
+
+
+def test_two_threads_round_trip_through_one_codec(cuda):
+    import sys
+    import threading
+
+    codec = WahCodec(cuda)
+    bitmaps = [_quarter_density(_C + 999, seed=s) for s in (5, 6)]
+    want = [codec.compress(b)[0] for b in bitmaps]
+    got, errors = [[], []], []
+
+    def trips(k: int) -> None:
+        try:
+            for _ in range(3):
+                stream, _ = codec.compress(bitmaps[k])
+                out, _ = codec.decompress(stream, out_ints=len(bitmaps[k]))
+                got[k].append((stream, out))
+        except Exception as e:  # read below, in the test's thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=trips, args=(k,)) for k in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads) and not errors
+    for k in (0, 1):
+        assert len(got[k]) == 3
+        for stream, out in got[k]:
+            np.testing.assert_array_equal(stream, want[k])
+            np.testing.assert_array_equal(out, bitmaps[k])
 
 
 def test_amortized_seconds_of_k1_is_its_event_time(cuda):

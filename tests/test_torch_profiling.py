@@ -234,6 +234,10 @@ def test_a_traced_round_trip_records_the_documented_spans(tmp_path):
         "wah.decompress.from_device": -(-N_INTS // 31) * 31 * 4,
     }
     assert {r.name: r.counts.get("bytes") for r in got if "bytes" in r.counts} == want
+    # the copies' chunks through convert's pinned ring: none on the CPU
+    assert {r.name: r.counts["staged_chunks"] for r in got if "staged_chunks" in r.counts} == {
+        f"wah.{side}.{phase}": 0 for side in ("compress", "decompress")
+        for phase in ("to_device", "from_device")}
     assert want["wah.decompress.from_device"] >= data.nbytes
     (trace_file,) = tmp_path.glob("*.pt.trace.json")
     events = json.loads(trace_file.read_text())["traceEvents"]

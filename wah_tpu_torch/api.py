@@ -27,7 +27,7 @@ import torch
 
 from . import native
 from .constants import BIT31, BLOCK_CHUNKS, BLOCK_INTS, LEN_MASK, ONES31
-from .convert import tensor_to_words, words_to_tensor
+from .convert import staged_chunks, tensor_to_words, words_to_tensor
 from .golden import chunk_count
 from .ops import logical as _lops
 from .ops.cuda import decode_kernel, encode_kernel, stream_check
@@ -153,7 +153,8 @@ class WahCodec:
                     data = np.concatenate([data, np.zeros(nb * BLOCK_INTS - n, np.uint32)])
 
             t = PhaseTimer(self.device, span="wah.compress")
-            t.start("to_device", bytes=data.nbytes)
+            t.start("to_device", bytes=data.nbytes,
+                    staged_chunks=staged_chunks(data.size, self.device, to_device=True))
             dev = words_to_tensor(data, self.device)
             t.stop("to_device")
 
@@ -163,7 +164,8 @@ class WahCodec:
 
             t.start("from_device")
             out = tensor_to_words(words[: int(total)])
-            t.stop("from_device", bytes=out.nbytes)
+            t.stop("from_device", bytes=out.nbytes,
+                   staged_chunks=staged_chunks(out.size, self.device, to_device=False))
             return out, t.timings
 
     def decompress(
@@ -183,7 +185,8 @@ class WahCodec:
 
             # the stream as it is, into a device buffer of whole blocks
             t = PhaseTimer(self.device, span="wah.decompress")
-            t.start("to_device", bytes=words.nbytes)
+            t.start("to_device", bytes=words.nbytes,
+                    staged_chunks=staged_chunks(m, self.device, to_device=True))
             dev = words_to_tensor(words, self.device, size=-(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS)
             t.stop("to_device")
 
@@ -200,7 +203,8 @@ class WahCodec:
 
             t.start("from_device")
             out = tensor_to_words(ints[: int(n_ints)])
-            t.stop("from_device", bytes=out.nbytes)
+            t.stop("from_device", bytes=out.nbytes,
+                   staged_chunks=staged_chunks(out.size, self.device, to_device=False))
             if out_ints is not None:
                 out = out[:out_ints]
             return out, t.timings

@@ -27,8 +27,10 @@ costs one check. The names the port records:
                                           on the device, and the host's read
                                           of its result (bytes of the stream)
   wah.{compress,decompress}.to_device     the PhaseTimer phases; the copies
-  wah.{compress,decompress}.kernel        carry the bytes that cross
-  wah.{compress,decompress}.from_device
+  wah.{compress,decompress}.kernel        carry the bytes that cross and the
+  wah.{compress,decompress}.from_device   chunks they moved through convert's
+                                          pinned ring (staged_chunks; 0 when
+                                          copied directly)
   wah.encode                              encode_padded's pipeline, issued
   wah.decode                              decode's pipeline, issued
   wah.sharded.encode                      parallel.encode_sharded (holds
