@@ -37,12 +37,12 @@ imports nothing of JAX or wah_tpu. Phases, one or more lines each:
               odd sizes, tiny, empty, and the 992 MB sweep size (stream ==
               the plain torch encode on the card); every case round-trips
   4b. queries the index queries at the query shape: k = 4 and 16 OR and
-              AND folds, a pairwise AND (~2^-16, so the "auto" stitch must
-              take K6), NOT; each == the plain pipeline on the card and ==
+              AND folds, a pairwise AND (~2^-16, stitched by K2; K6 must
+              not run), NOT; each == the plain pipeline on the card and ==
               golden.encode of the numpy result
   4c. index   BitmapIndex over TPC-H SF10 lineitem.l_quantity (59,986,052
               rows, 50 values): TPC-H Q6's and Q19's quantity ranges, a
-              membership, a NOT and a disjoint AND (K6); every stream ==
+              membership, a NOT and a disjoint AND (K2); every stream ==
               golden, every count == numpy, rows == numpy
   4d. segments  compress_segments / decompress_segments of a bitmap past
               the int32 position cap: 66 copies of the protocol bitmap
@@ -719,6 +719,7 @@ def phase_queries(cuda, query, main_path):
     from wah_tpu_torch.convert import tensor_to_words
     from wah_tpu_torch.ops import logical
     from wah_tpu_torch.ops.cuda import encode_kernel as ek
+    from wah_tpu_torch.ops.cuda import stitch2
 
     cols, n, cap, words, totals = (query[k] for k in ("cols", "n", "cap", "words", "totals"))
     folds = [(k, op) for k in (4, 16) for op in ("or", "and")]
@@ -729,16 +730,16 @@ def phase_queries(cuda, query, main_path):
             w, t = logical.logical_reduce_flat(words[: k * cap], k, totals[:k], op, n, plain)
             out[f"k{k}_{op}"] = tensor_to_words(w[: int(t)])
         m_a, m_b = int(totals[0]), int(totals[1])
-        before = ek.stitch_tiles.launches
+        k6, k2 = ek.stitch_tiles.launches, stitch2.stitch_tiles_v2.launches
         w, t = logical.logical_op(words[:cap], m_a, words[cap : 2 * cap], m_b, "and", n, plain)
         out["pair_and"] = tensor_to_words(w[: int(t)])
-        if not plain and ek.stitch_tiles.launches != before + 1:
-            raise AssertionError("pairwise AND: the auto stitch did not take K6")
+        if not plain and (ek.stitch_tiles.launches, stitch2.stitch_tiles_v2.launches) != (k6, k2 + 1):
+            raise AssertionError("pairwise AND: not stitched by K2 alone")
         out["not"] = tensor_to_words(logical.complement_stream(words[:cap], m_a)[:m_a])
         return out
 
     got = main_path("queries", ["encode_tiles", "stitch_tiles_v2", "prescan_words",
-                                "decode_blocks", "stitch_tiles"], lambda: queries(False))
+                                "decode_blocks"], lambda: queries(False))
     plain = queries(True)
     want = {f"k{k}_{op}": golden.encode({"or": np.bitwise_or, "and": np.bitwise_and}[op]
                                         .reduce(cols[:k])) for k, op in folds}
@@ -781,13 +782,13 @@ def phase_index(cuda, main_path):
             t0 = time.perf_counter()
             out[name] = q(idx)
             times[name] = time.perf_counter() - t0
-            if name == "and_1_2_disjoint" and ek.stitch_tiles.launches != k6 + 1:
-                raise AssertionError("disjoint AND: the auto stitch did not take K6")
+            if ek.stitch_tiles.launches != k6:
+                raise AssertionError(f"{name}: K6 ran; every encode is stitched by K2")
         rows = idx.rows(out["q19_1_to_11"])
         return idx, out, rows
 
     idx, got, rows = main_path("index", ["encode_tiles", "stitch_tiles_v2", "prescan_words",
-                                         "decode_blocks", "stitch_tiles"], drive)
+                                         "decode_blocks"], drive)
     for v in (0, 23, 49):
         same_stream(f"index column {v}", idx.column(v), golden.encode(mask_bitmap(values == v)))
     for name, (_, mask_fn) in queries.items():
@@ -1204,11 +1205,11 @@ def phase_segments(cuda, proto, main_path):
 
 
 def phase_differential(cuda, main_path):
-    """4e. The differential's full matrix on the card; K5 runs on every case."""
+    """4e. The differential's full matrix on the card; K5 and K6 run on every case."""
     from wah_tpu_torch import differential
 
     report = main_path("differential", ["encode_tiles", "stitch_tiles_v2", "prescan_words",
-                                        "decode_blocks", "encode_fused"],
+                                        "decode_blocks", "encode_fused", "stitch_tiles"],
                        lambda: differential.run(cuda))
     print(f"[4e differential] {differential.summary_line(report)}", flush=True)
     if report["summary"]["failed"] or report["summary"]["total_cases"] != 26:
@@ -1578,8 +1579,7 @@ def phase_kernel_times(cuda, card, proto, query, scans, profile: bool = False):
     del big_stream
 
     # K6 against K2 on the same staging: the protocol's (2^-4, dense), the
-    # all-zero bitmap's, and 130 MB stagings at the densities between, where
-    # the "auto" stitch chooses (K6 iff total <= 3/8 of capacity)
+    # all-zero bitmap's, and 130 MB stagings at the densities between
     stagings = [("2^-4 (protocol)", p["staging"], p["offsets_ext"])]
     gen = torch.Generator(device=cuda).manual_seed(SEED)
     for ands in (8, 12, 16):
@@ -1724,8 +1724,7 @@ def phase_profiling(cuda, card, proto, ms):
 
     # steps a capture must refuse: a host read of a device value
     probes = {
-        "encode_padded(stitch='auto'), its host read of the total": (
-            lambda ints: ek.encode_padded(ints, nv_count, stitch="auto"), (p["ints"],), True),
+        "int(ints[:1]), a host read": (lambda ints: int(ints[:1]), (p["ints"],), True),
         "torch.tensor([...], device=cuda), a copy from pageable memory": (
             lambda ints: torch.tensor([1, 2], dtype=torch.int32, device=ints.device), (p["ints"],),
             False),

@@ -7,7 +7,9 @@ of a buffer or the whole of it: at the edge lengths of a chunk they give
 the direct copy's words, and no buffer is written before the event of
 its last copy was waited for. words_to_tensor and tensor_to_words run
 their staged route on the stand-in too (the `size=` tail, a 2-D
-non-contiguous tensor, results that never alias the ring). The routes
+non-contiguous tensor, results that never alias the ring). Rows (C, n)
+go to (C, W) by either route: the words exact, every row zeroed past n.
+The routes
 themselves: the CPU keeps its zero-copy path at any size, and
 staged_chunks takes the ring on a CUDA device from STAGE_MIN_WORDS words.
 The same copies on the card are in tests/test_torch_cuda.py.
@@ -133,6 +135,30 @@ def test_the_staged_route_copies_a_non_contiguous_tensor_in_its_shape(staged):
     got = tensor_to_words(rows[:, 1:6])
     assert got.shape == (6, 5)
     np.testing.assert_array_equal(got, rows[:, 1:6].numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("route", ["host", "staged"])
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("wider", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 991, 992, 993])
+def test_rows_are_copied_as_they_are_and_widened_on_the_device(request, route, C, wider, n):
+    """(C, n) -> (C, W), W = n or the next whole block of 992 ints: the C*n
+    words cross as they are, in one copy, and each row is zero past n."""
+    ring = request.getfixturevalue("staged") if route == "staged" else None
+    W = (n // 992 + 1) * 992 if wider else n
+    rows = _words(C * n, seed=200 + n).reshape(C, n)
+    t = words_to_tensor(rows, "cpu", size=W if wider else None)
+    assert t.dtype == torch.int32 and t.shape == (C, W)
+    got = t.numpy().view(np.uint32)
+    np.testing.assert_array_equal(got[:, :n], rows)
+    assert not got[:, n:].any()
+    if ring is not None:
+        assert convert.copies["staged"] == (1 if n else 0)
+        assert convert.copies["chunks"] == -(-C * n // H2D_CHUNK)
+        for buf in ring.bufs:
+            assert not np.shares_memory(got, buf.numpy())
+    elif n and not wider:
+        assert t.data_ptr() == rows.ctypes.data  # the CPU keeps its zero-copy view
 
 
 @pytest.mark.parametrize("n", [0, 1, convert.STAGE_MIN_WORDS + 1])

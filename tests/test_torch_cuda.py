@@ -18,8 +18,12 @@ compaction of a gathered payload at edge totals, the per-rank decode from
 a chunk base, the bodies of eight ranks, and ShardedCodec("cuda") at a
 world of one; V1 (the stream check) against its plain twin on the cases
 of tests/test_torch_stream_check.py and on a 2^-4 protocol stream with
-bad words past its last 16 B vector, and WahCodec("cuda").decompress
-checking on the card alone; convert's pinned staging ring: both directions
+bad words past its last 16 B vector, WahCodec("cuda").decompress
+checking on the card alone, and decompress_batch (a V1 launch a column)
+and ShardedCodec.decompress raising the CPU codec's messages; every host
+entry point with the host checks and padded host arrays refused;
+convert's rows copied as they are and widened on the card; convert's
+pinned staging ring: both directions
 bit-exact at 0 and 1 words, around the staging threshold and a chunk of
 each direction and past a ring's worth of chunks, with and without
 `size=` (the tail zeroed),
@@ -50,6 +54,8 @@ from wah_tpu_torch.ops.cuda import scan_check, stitch2
 from wah_tpu_torch.ops.cuda import stream_check as sc
 from test_torch_dist_cases import COMPACT_TOTALS, compact_case
 from test_torch_stream_check import CASES as CHECK_CASES
+from test_torch_stream_check import (BATCH_FAULTS, HOST_PATHS, N_HOST, STREAM_FAULTS, _batch,
+                                     _host_path, _message, _refuse_host_passes, _stream_with)
 
 pytestmark = pytest.mark.cuda
 
@@ -190,7 +196,7 @@ def test_stitch_tiles_matches_plain(cuda, name):
     assert not want[total:end].any()
 
 
-@pytest.mark.parametrize("stitch", ["v1", "v3", "auto"])
+@pytest.mark.parametrize("stitch", ["v1", "v3"])
 @pytest.mark.parametrize("name", ["sparse", "dense", "all_zeros", "odd_size"])
 def test_encode_padded_stitches_match_golden(cuda, name, stitch):
     data = BITMAPS[name]()
@@ -268,15 +274,16 @@ def test_logical_pipeline_matches_plain(cuda, op):
     M = -(-max(len(sa), len(sb)) // BLOCK_CHUNKS) * BLOCK_CHUNKS
     ta, tb = torch.zeros(M, dtype=torch.int32, device=cuda), torch.zeros(M, dtype=torch.int32, device=cuda)
     ta[: len(sa)], tb[: len(sb)] = words_to_tensor(sa, cuda), words_to_tensor(sb, cuda)
-    before = ek.stitch_tiles.launches
+    k6, k2 = ek.stitch_tiles.launches, stitch2.stitch_tiles_v2.launches
     words, total = logical.logical_op(ta, len(sa), tb, len(sb), op, n)
     words_p, total_p = logical.logical_op(ta, len(sa), tb, len(sb), op, n, plain=True)
     assert int(total) == int(total_p)
     assert torch.equal(words[: int(total)], words_p[: int(total)])
     want = {"and": a & b, "or": a | b, "xor": a ^ b, "andnot": a & ~b}[op]
     np.testing.assert_array_equal(tensor_to_words(words[: int(total)]), golden.encode(want))
-    # "auto" takes K6 for the sparse AND (~2^-12) and K2 for the rest
-    assert ek.stitch_tiles.launches == before + (op == "and")
+    # K2 stitches every result, the sparse AND (~2^-12) too; K6 never runs
+    assert ek.stitch_tiles.launches == k6
+    assert stitch2.stitch_tiles_v2.launches == k2 + 1
 
 
 @pytest.mark.parametrize("op", ["or", "and", "xor"])
@@ -309,9 +316,10 @@ def test_index_on_cuda_matches_numpy(cuda):
                                   np.flatnonzero((values >= 2) & (values <= 5)))
     assert idx.count(idx.query_in([0, 7])) == int(np.isin(values, [0, 7]).sum())
     assert idx.count(idx.query_not(3)) == int((values != 3).sum())
-    before = ek.stitch_tiles.launches
+    k6, k2 = ek.stitch_tiles.launches, stitch2.stitch_tiles_v2.launches
     empty = idx.codec.logical(idx.column(0), idx.column(1), "and", idx.n_ints)
-    assert ek.stitch_tiles.launches == before + 1 and idx.count(empty) == 0
+    assert idx.count(empty) == 0
+    assert ek.stitch_tiles.launches == k6 and stitch2.stitch_tiles_v2.launches == k2 + 1
 
 
 def _padded(data: np.ndarray, extra_blocks: int = 0):
@@ -920,13 +928,75 @@ def test_the_codec_copies_by_route(cuda, blocks, route):
     np.testing.assert_array_equal(out, data)
     assert convert.copies[route] - before[route] == 4
     got = {r.name: r.counts["staged_chunks"] for r in profiling.spans() if "staged_chunks" in r.counts}
-    want = {"wah.compress.to_device": blocks * BLOCK_INTS, "wah.compress.from_device": len(stream),
+    want = {"wah.compress.to_device": len(data), "wah.compress.from_device": len(stream),
             "wah.decompress.to_device": len(stream),
             "wah.decompress.from_device": -(-len(data) // 31) * 31}  # whole groups of 31
     assert got == {k: convert.staged_chunks(v, cuda, to_device=k.endswith("to_device"))
                    for k, v in want.items()}
     assert (sum(got.values()) > 0) == (route == "staged")
     assert convert.copies["chunks"] - before["chunks"] == sum(got.values())
+
+
+@pytest.mark.parametrize("n,wider", [(3, True), (_T // 5 + 1, False), (_T // 5 + 1, True)])
+def test_rows_cross_as_they_are_and_widen_on_the_card(cuda, n, wider):
+    """(5, n) -> (5, W): the 5n words in one copy, directly or through the
+    ring, each row exact and zero past n; rows of whole blocks start 16 B
+    aligned, as V1 and K3 load them."""
+    rows = _random_words(5 * n, seed=n).reshape(5, n)
+    W = (n // BLOCK_CHUNKS + 1) * BLOCK_CHUNKS if wider else n
+    before = dict(convert.copies)
+    t = words_to_tensor(rows, cuda, size=W if wider else None)
+    route = "staged" if 5 * n >= _T else "direct"
+    assert convert.copies[route] - before[route] == 1
+    assert t.device.type == "cuda" and t.shape == (5, W)
+    got = tensor_to_words(t)
+    np.testing.assert_array_equal(got[:, :n], rows)
+    assert not got[:, n:].any()
+    if wider:
+        assert all(t[c].data_ptr() % 16 == 0 for c in range(5))
+
+
+@pytest.mark.parametrize("name", HOST_PATHS)
+def test_host_entry_points_on_cuda_make_no_host_pass(cuda, name, monkeypatch):
+    """The entry points on the card with every host check, count and
+    padded host array refused: the same results as on the CPU."""
+    from wah_tpu_torch.parallel import dist
+
+    call, want = _host_path(name, cuda)
+    _refuse_host_passes(monkeypatch, (np, "zeros"), (np, "full"), (dist, "checked_stream"))
+    got = call()
+    monkeypatch.undo()
+    for g, w in zip(got, want) if isinstance(want, list) else [(got, want)]:
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("fault", BATCH_FAULTS)
+def test_decompress_batch_on_cuda_checks_each_column_on_the_card(cuda, fault):
+    """One V1 launch a column, no decode before a bad column raises, and the
+    CPU codec's message (wah_tpu's, tests/test_torch_stream_check.py)."""
+    words, totals = _batch(fault)
+    codec = WahCodec(cuda)
+    before = sc.check_stream.launches, dk.decode_blocks.launches
+    if fault == "past_a_total_only":
+        np.testing.assert_array_equal(codec.decompress_batch(words, totals, N_HOST),
+                                      WahCodec("cpu").decompress_batch(words, totals, N_HOST))
+        assert sc.check_stream.launches == before[0] + len(totals)
+        return
+    want = _message(WahCodec("cpu").decompress_batch, words, totals)
+    assert _message(codec.decompress_batch, words, totals) == want
+    assert (sc.check_stream.launches, dk.decode_blocks.launches) == (before[0] + len(totals),
+                                                                     before[1])
+
+
+@pytest.mark.parametrize("fault", STREAM_FAULTS)
+def test_sharded_decompress_on_cuda_checks_on_the_card(cuda, fault):
+    from wah_tpu_torch.parallel import ShardedCodec
+
+    words = _stream_with(fault)
+    before = sc.check_stream.launches, dk.decode_blocks.launches
+    assert _message(ShardedCodec(cuda).decompress, words) == \
+        _message(ShardedCodec("cpu").decompress, words)
+    assert (sc.check_stream.launches, dk.decode_blocks.launches) == (before[0] + 1, before[1])
 
 
 def test_two_threads_round_trip_through_one_codec(cuda):

@@ -26,7 +26,7 @@ def test_quick_run_every_section_ok(report):
         checks = {k: v for k, v in case.items() if isinstance(v, bool)}
         assert case["ok"] and all(checks.values()), case
     for case in report["cases"][:6]:
-        assert {"api_enc", "api_dec", "fused", "native"} <= set(case)
+        assert {"api_enc", "api_dec", "fused", "gather", "native"} <= set(case)
 
 
 def test_sharded_section_runs_every_check(report):

@@ -116,17 +116,20 @@ def test_stitch_tiles_plain_matches_pallas(name, gen):
 
 @pytest.mark.parametrize("name", ["random_sparse", "random_dense", "all_zeros"])
 def test_encode_padded_auto_stitch_matches_pallas(name):
-    """encode_padded's default "auto" stitch (K6 for a stream that fills at
-    most 3/8 of its capacity, K2 otherwise) against wah_tpu's lax.cond."""
+    """encode_padded with either stitch, K2 ("v3", the default) and K6
+    ("v1"), against wah_tpu's default "auto" stitch, which chooses between
+    them on the total (lax.cond). The port has no such choice: "auto" is
+    refused like any other unknown stitch."""
     ints2d, nv = _blocks(dict(CASES)[name]())
     jwords, jtotal = jax.jit(jek.encode_padded)(ints2d.reshape(-1), np.int32(nv))
     total = int(jtotal)
-    for stitch in ("auto", "v1", "v3"):
+    for stitch in ("v1", "v3"):
         words, t = ek.encode_padded(_t(ints2d.reshape(-1)), nv, stitch=stitch)
         assert int(t) == total
         np.testing.assert_array_equal(_n(words)[:total], np.asarray(jwords)[:total])
-    with pytest.raises(ValueError, match="stitch"):
-        ek.encode_padded(_t(ints2d.reshape(-1)), nv, stitch="v2")
+    for stitch in ("v2", "auto"):
+        with pytest.raises(ValueError, match="stitch"):
+            ek.encode_padded(_t(ints2d.reshape(-1)), nv, stitch=stitch)
 
 
 def _prescan_inputs(data):

@@ -62,8 +62,10 @@ def test_logical_extreme_operands(codecs):
 
 
 def test_logical_sparse_result_takes_the_gather_stitch(codecs):
-    """AND of two 2^-8 columns is ~2^-16: the "auto" stitch chooses K6 (on
-    the CPU its plain version) and the stream still equals wah_tpu's."""
+    """AND of two 2^-8 columns is ~2^-16, a result that wah_tpu's "auto"
+    stitch sends to its gather stitch; the port stitches every result with
+    K2 (on the CPU its plain version), and the stream still equals
+    wah_tpu's."""
     jcodec, tcodec = codecs
     n = 8 * BLOCK_INTS
     rng = np.random.default_rng(1337)
@@ -71,7 +73,7 @@ def test_logical_sparse_result_takes_the_gather_stitch(codecs):
                                   .astype(np.uint32)) for _ in range(2))
     sa, sb = golden.encode(a), golden.encode(b)
     got = tcodec.logical(sa, sb, "and", n)
-    assert len(got) * 8 <= 8 * 1024 * 3  # a result K6 stitches
+    assert len(got) * 8 <= 8 * 1024 * 3  # a result wah_tpu's gather stitch takes
     np.testing.assert_array_equal(got, jcodec.logical(sa, sb, "and", n))
     np.testing.assert_array_equal(got, golden.encode(a & b))
 

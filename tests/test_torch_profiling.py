@@ -166,12 +166,12 @@ def test_trace_defaults_to_a_fresh_directory_each_time(tmp_path, monkeypatch):
         assert len(list(tmp_path.glob(f"{d.rsplit('/', 1)[1]}/*.pt.trace.json"))) == 1
 
 
-# 5,000 ints: compress pads 5,000 -> 5,952 (6 blocks); decompress copies the
-# stream as it is into a device buffer of whole 1024-word blocks
+# 5,000 ints: compress copies the bitmap as it is into a device buffer of
+# 6 whole blocks (5,952 ints); decompress copies the stream as it is into a
+# device buffer of whole 1024-word blocks
 N_INTS = 5000
 # (name, parent) of every span of one round trip, in the order they close
 ROUND_TRIP = [
-    ("wah.compress.pad", "wah.compress"),
     ("wah.compress.to_device", "wah.compress"),
     ("wah.encode", "wah.compress.kernel"),
     ("wah.compress.kernel", "wah.compress"),
@@ -223,10 +223,8 @@ def test_a_traced_round_trip_records_the_documented_spans(tmp_path):
     for r in got:  # each span lies inside its parent
         if r.parent is not None:
             assert by_name[r.parent].t0 <= r.t0 and r.t1 <= by_name[r.parent].t1
-    padded_ints = 6 * 992
     want = {
-        "wah.compress.pad": padded_ints * 4,
-        "wah.compress.to_device": padded_ints * 4,
+        "wah.compress.to_device": N_INTS * 4,  # the bitmap as it is, padded on the device
         "wah.compress.from_device": stream.nbytes,
         "wah.decompress.to_device": stream.nbytes,
         "wah.decompress.validate": stream.nbytes,

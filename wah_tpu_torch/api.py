@@ -7,8 +7,11 @@ bitmaps and columns of any size as block-aligned segments
 the compressed-domain logical ops (logical / logical_many).
 
 numpy uint32 in, numpy uint32 out, as in wah_tpu. On a CUDA device the
-kernels K1-K4, K6 and V1 (the stream check) run (ops/cuda); on the CPU
-their plain versions.
+kernels K1-K4 and V1 (the stream check) run (ops/cuda); on the CPU
+their plain versions. Every entry point copies its arrays to the device
+as they are, through convert.words_to_tensor, which writes the padding
+on the device; every decompress checks and counts its streams there
+with V1 (wah_tpu validates and counts on the host).
 Like wah_tpu's, every entry point runs on the accelerator unless asked
 otherwise: the device defaults to "cuda", and without a CUDA device
 that default raises (resolve_device) instead of running on the CPU;
@@ -48,12 +51,6 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
-def _pad_words(words: np.ndarray, M: int) -> np.ndarray:
-    out = np.zeros(M, np.uint32)
-    out[: len(words)] = words
-    return out
-
-
 def _check_size(n: int) -> None:
     if n > MAX_INTS_PER_BITMAP:
         raise ValueError(
@@ -81,7 +78,10 @@ def validate_stream(words: np.ndarray) -> None:
     """Check a WAH stream against the format invariants (SURVEY.md section
     0.1): no 0x0/0x7FFFFFFF words, fill lengths in [1, 1024]. The
     reference decoder checks nothing (decompress.cu:48-52); every
-    decompress here validates first."""
+    decompress here checks first, with V1 on the device copy
+    (ops/cuda/stream_check). This host pass runs only where a stream
+    failed that check, to raise wah_tpu's message (decompress_batch), and
+    where the C++ host codec is not built (checked_stream)."""
     words = np.asarray(words, dtype=np.uint32)
     if np.any(words == 0) or np.any(words == ONES31):
         raise ValueError(_LITERAL_FILL)
@@ -100,7 +100,9 @@ def _violation(word: int) -> str:
 def checked_stream(words: np.ndarray) -> np.ndarray:
     """ascontiguousarray(uint32) + validation: the C++ host codec's check
     when it is built (native.validate, the same messages), validate_stream
-    otherwise (wah_tpu.api.checked_stream)."""
+    otherwise (wah_tpu.api.checked_stream). On a good stream it serves the
+    CLI's `info` alone; ShardedCodec.decompress calls it only for the
+    message of a stream that V1 found bad."""
     words = np.ascontiguousarray(words, dtype=np.uint32)
     if native.available():
         native.validate(words)
@@ -112,7 +114,8 @@ def checked_stream(words: np.ndarray) -> np.ndarray:
 def stream_chunks(words: np.ndarray) -> int:
     """The number of chunks a validated stream expands to: fills count
     their run length, literals 1 (native.decoded_chunks when the host codec
-    is built, numpy otherwise)."""
+    is built, numpy otherwise). The CLI's `info` alone uses it: the
+    decoders count on the device with V1."""
     if native.available():
         return native.decoded_chunks(words)
     is_fill = (words & np.uint32(BIT31)) != 0
@@ -148,14 +151,12 @@ class WahCodec:
             _check_size(n)
             nv = chunk_count(n)
             nb = -(-nv // BLOCK_CHUNKS)
-            if n != nb * BLOCK_INTS:  # pad to whole blocks
-                with span("wah.compress.pad", bytes=nb * BLOCK_INTS * 4):
-                    data = np.concatenate([data, np.zeros(nb * BLOCK_INTS - n, np.uint32)])
 
+            # the bitmap as it is, into a device buffer of whole blocks
             t = PhaseTimer(self.device, span="wah.compress")
             t.start("to_device", bytes=data.nbytes,
-                    staged_chunks=staged_chunks(data.size, self.device, to_device=True))
-            dev = words_to_tensor(data, self.device)
+                    staged_chunks=staged_chunks(n, self.device, to_device=True))
+            dev = words_to_tensor(data, self.device, size=nb * BLOCK_INTS)
             t.stop("to_device")
 
             t.start("kernel")
@@ -218,7 +219,8 @@ class WahCodec:
         for that column alone; words past it are unspecified. W is the
         longest total (wah_tpu returns the whole capacity instead).
         Mirrors wah_tpu WahCodec.compress_batch (api.py:266-319): columns
-        padded to a power-of-two block count, one batched encode.
+        padded to a power-of-two block count, one batched encode. The
+        columns cross as they are and are padded on the device.
         """
         data = np.ascontiguousarray(data, dtype=np.uint32)
         C, n = data.shape
@@ -227,9 +229,7 @@ class WahCodec:
         _check_size(n)
         nv = chunk_count(n)
         nb = _next_pow2(-(-nv // BLOCK_CHUNKS))
-        padded = np.zeros((C, nb * BLOCK_INTS), dtype=np.uint32)
-        padded[:, :n] = data
-        rows = words_to_tensor(padded.reshape(-1), self.device).view(C * nb, BLOCK_INTS)
+        rows = words_to_tensor(data, self.device, size=nb * BLOCK_INTS).view(C * nb, BLOCK_INTS)
         words, totals = encode_kernel.encode_rows_batch(rows, C, nv)
         totals = totals.cpu().numpy().astype(np.int64)  # the one host read
         width = int(totals.max())
@@ -244,35 +244,31 @@ class WahCodec:
 
         Columns that expand equally (every compress_batch output) go
         through one batched decode; otherwise each column goes through the
-        single-stream decode (wah_tpu sends those to its XLA path).
+        single-stream decode (wah_tpu sends those to its XLA path). The
+        columns cross once, as they are, into device rows of whole blocks,
+        and V1 checks and counts each row there; a bad stream raises
+        wah_tpu's message (validate_stream over the live words).
         """
         words = np.ascontiguousarray(words, dtype=np.uint32)
         totals = np.asarray(totals)
         C, M = words.shape
         if M == 0:
             return np.zeros((C, 0), np.uint32)
-        live = np.arange(M)[None, :] < totals[:, None]
-        validate_stream(words[live])  # per-word invariants, column by column
-        is_fill = (words & np.uint32(BIT31)) != 0
-        counts = np.where(is_fill & live, words & np.uint32(LEN_MASK), live)
-        col_chunks = counts.sum(axis=1, dtype=np.int64)
+        dev = words_to_tensor(words, self.device, size=-(-M // BLOCK_CHUNKS) * BLOCK_CHUNKS)
+        checks = [stream_check.check_stream(dev[c], int(totals[c])) for c in range(C)]
+        first_bad, col_chunks = torch.stack(checks).cpu().numpy().T  # the one host read
+        if (first_bad < totals).any():
+            validate_stream(words[np.arange(M)[None, :] < totals[:, None]])
+            raise ValueError(_LITERAL_FILL)  # V1 read the zero padding: a total past the words
         n_chunks = int(col_chunks.max())
         cap = _next_pow2(max(1, -(-n_chunks // BLOCK_CHUNKS))) * BLOCK_CHUNKS
-        Mp = -(-M // BLOCK_CHUNKS) * BLOCK_CHUNKS
         if (col_chunks == col_chunks[0]).all():
-            padded = np.zeros((C, Mp), np.uint32)
-            padded[:, :M] = words
             ms = torch.from_numpy(totals.astype(np.int32)).to(self.device)
-            flat = decode_kernel.decode_rows_batch(
-                words_to_tensor(padded.reshape(-1), self.device), C, ms, cap
-            )
+            flat = decode_kernel.decode_rows_batch(dev.reshape(-1), C, ms, cap)
             out = tensor_to_words(flat).reshape(C, -1)
         else:
             out = np.stack([
-                tensor_to_words(decode_kernel.decode(
-                    words_to_tensor(_pad_words(words[c, : totals[c]], Mp), self.device),
-                    int(totals[c]), cap,
-                )[0])
+                tensor_to_words(decode_kernel.decode(dev[c], int(totals[c]), cap)[0])
                 for c in range(C)
             ])
         if out_ints is not None:
@@ -409,8 +405,8 @@ class WahCodec:
         b = np.ascontiguousarray(stream_b, dtype=np.uint32)
         M = max(-(-max(len(a), len(b)) // BLOCK_CHUNKS), 1) * BLOCK_CHUNKS
         words, total = _lops.logical_op(
-            words_to_tensor(_pad_words(a, M), self.device), len(a),
-            words_to_tensor(_pad_words(b, M), self.device), len(b), op, n_ints,
+            words_to_tensor(a, self.device, size=M), len(a),
+            words_to_tensor(b, self.device, size=M), len(b), op, n_ints,
         )
         return tensor_to_words(words[: int(total)])
 
@@ -427,13 +423,9 @@ class WahCodec:
             return np.zeros(0, np.uint32)
         C = len(streams)
         M = max(-(-max(len(s) for s in streams) // BLOCK_CHUNKS), 1) * BLOCK_CHUNKS
-        flat = np.zeros((C, M), np.uint32)
-        for i, s in enumerate(streams):
-            flat[i, : len(s)] = s
+        rows = torch.stack([words_to_tensor(s, self.device, size=M) for s in streams])
         ms = torch.tensor([len(s) for s in streams], dtype=torch.int32, device=self.device)
-        words, total = _lops.logical_reduce_flat(
-            words_to_tensor(flat.reshape(-1), self.device), C, ms, op, n_ints
-        )
+        words, total = _lops.logical_reduce_flat(rows.reshape(-1), C, ms, op, n_ints)
         return tensor_to_words(words[: int(total)])
 
 

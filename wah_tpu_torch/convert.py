@@ -4,7 +4,10 @@ host and a CUDA device.
 torch cannot shift uint32 tensors, so the port carries WAH words and
 bitmap ints as int32 tensors holding the uint32 bit patterns. These two
 functions are the only place the views change; the public API keeps
-numpy uint32 in and out, like wah_tpu.
+numpy uint32 in and out, like wah_tpu. words_to_tensor is also the one
+place where words are padded for a device (its `size`): every entry
+point copies its arrays as they are, and the padding is written on the
+device.
 
 On a CUDA device an array of STAGE_MIN_WORDS words or more moves through
 a pinned staging ring that the module keeps, one per device: RING_BUFFERS
@@ -129,8 +132,22 @@ def words_to_tensor(words: np.ndarray, device, size: int | None = None) -> torch
     fresh tensor, and its tail is zeroed on `device`. To a CUDA device,
     through the pinned ring from STAGE_MIN_WORDS words on, else directly;
     either way on the device's current stream, and the array may change
-    once the call returns."""
+    once the call returns.
+
+    Rows (C, n) -> (C, n), or (C, size) with `size`: the C*n words cross as
+    they are, by the route above, and are widened on `device`, each row
+    zeroed past its n words. This is the one rule of the port for putting
+    host words on a device: callers never pad on the host."""
     words = np.require(words, dtype=np.uint32, requirements=["C", "W"])
+    if words.ndim == 2:
+        C, n = words.shape
+        rows = words_to_tensor(words.reshape(-1), device).view(C, n)
+        if size is None or size == n:
+            return rows
+        out = torch.empty((C, size), dtype=torch.int32, device=rows.device)
+        out[:, n:].zero_()
+        out[:, :n].copy_(rows)
+        return out
     host = torch.from_numpy(words.view(np.int32))
     n = host.shape[0]
     device = torch.device(device)

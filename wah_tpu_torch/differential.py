@@ -8,6 +8,9 @@ compiled CUDA kernels over the full matrix.
 Paths per case:
   api_enc / api_dec  WahCodec(device).compress / .decompress (K1-K4)
   fused              the single-kernel encode, K5 (encode_padded_fused)
+  gather             the encode stitched by K6 (encode_padded, stitch="v1"),
+                     the port of wah_tpu's stitch_tiles, which no entry
+                     point takes
   native             the C++ host codec; the check fails if it cannot be built
 Sections:
   batch_6cols        compress_batch / decompress_batch
@@ -165,16 +168,16 @@ def run(device="cuda", quick: bool = False) -> dict:
         out, _ = codec.decompress(stream, out_ints=n)
 
         nv = golden.chunk_count(n)
-        nb = -(-nv // BLOCK_CHUNKS)
-        padded = np.zeros(nb * BLOCK_INTS, np.uint32)
-        padded[:n] = data
-        w3, t3 = encode_kernel.encode_padded_fused(words_to_tensor(padded, device), nv)
+        padded = words_to_tensor(data, device, size=-(-nv // BLOCK_CHUNKS) * BLOCK_INTS)
+        w3, t3 = encode_kernel.encode_padded_fused(padded, nv)
         fused = tensor_to_words(w3[: int(t3)])
         encode_kernel.check_fused_error()
+        w1, t1 = encode_kernel.encode_padded(padded, nv, stitch="v1")
         record(name, {
             "api_enc": bool(np.array_equal(stream, ref)),
             "api_dec": bool(np.array_equal(out, data)),
             "fused": bool(np.array_equal(fused, ref)),
+            "gather": bool(np.array_equal(tensor_to_words(w1[: int(t1)]), ref)),
             "native": _native_encode_equals(data, ref),
         }, {"n_ints": n, "words": len(ref)})
 

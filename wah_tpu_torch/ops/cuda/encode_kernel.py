@@ -12,9 +12,9 @@ shared memory and stored 16 B a thread. `stitch_tiles` (K6) lays the
 blocks' words into the dense stream tile by output tile
 (wah_tpu_torch/csrc/stitch_gather.cu), with K2's contract plus a zeroed
 last tile. `encode_padded` is the encode pipeline, K1 -> exclusive scan
-of the counts (torch.cumsum, outside the kernels as in wah_tpu) -> K2 or
-K6; `encode_rows_batch` the same over batched columns (K1 with a
-per-column position mask, K2 with per-row counts). `encode_fused` (K5)
+of the counts (torch.cumsum, outside the kernels as in wah_tpu) -> K2
+(K6 on request); `encode_rows_batch` the same over batched columns (K1
+with a per-column position mask, K2 with per-row counts). `encode_fused` (K5)
 is the whole single-stream pipeline in one kernel
 (wah_tpu_torch/csrc/encode_fused.cu: no staging array, the scan of the
 counts done inside the kernel by a decoupled look-back over tiles of
@@ -143,7 +143,7 @@ def stitch_tiles(staging: torch.Tensor, offsets_ext: torch.Tensor) -> torch.Tens
 
 stitch_tiles.launches = 0
 
-STITCHES = ("v1", "v3", "auto")
+STITCHES = ("v1", "v3")
 
 
 def _blocks_and_nv(ints, n_valid_chunks: int, chunk_base: int):
@@ -162,32 +162,28 @@ def _encode_padded(ints, n_valid_chunks: int, chunk_base: int, stitch: str, tile
         raise ValueError(f"stitch must be one of {STITCHES}, got {stitch!r}")
     with span("wah.encode"):
         ints2d, nv = _blocks_and_nv(ints, n_valid_chunks, chunk_base)
-        nb = ints2d.shape[0]
         staging, counts = tiles(ints2d, nv)
         offsets_ext = torch.cat(
             [counts.new_zeros(1), torch.cumsum(counts[:, 0], dim=0, dtype=torch.int32)]
         )
         total = offsets_ext[-1]
-        if stitch == "auto":
-            # the gather stitch iff the stream fills at most 3/8 of its capacity
-            # (wah_tpu encode_kernel.py:856-864): one host read of the total
-            total = total.cpu()
-            stitch = "v1" if int(total) * 8 <= nb * BLOCK_CHUNKS * 3 else "v3"
         return (v1 if stitch == "v1" else v3)(staging, offsets_ext), total
 
 
 def encode_padded(
-    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0, stitch: str = "auto"
+    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0, stitch: str = "v3"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Compress a block-aligned (nb*992,) int32 bitmap whose first
     `n_valid_chunks` chunks are live (chunk_base: global index of its
-    first chunk). Returns (words (nb*1024,), total int32 0-dim); words
-    past total are unspecified.
+    first chunk). Returns (words (nb*1024,), total int32 0-dim on the
+    device, no host read); words past total are unspecified.
 
-    stitch: "v3" runs K2, "v1" K6, and "auto" (the default, as in
-    wah_tpu) K6 when the total is at most 3/8 of nb*1024 words and K2
-    otherwise. "auto" reads the total on the host to choose, and returns
-    it as a CPU tensor, so reading it again costs no second sync.
+    stitch: "v3" (the default) runs K2, "v1" K6. wah_tpu's default picks
+    K6 for sparse streams on a host read of the total; on the H100 K6
+    loses on dense stagings and is within a few microseconds of K2 on
+    sparse ones, which does not pay for that read, so the port takes K2,
+    and K6 stays as the port of wah_tpu's stitch_tiles for the
+    differential and its tests.
     """
     return _encode_padded(
         ints, n_valid_chunks, chunk_base, stitch, encode_tiles, stitch_tiles_v2, stitch_tiles
@@ -195,7 +191,7 @@ def encode_padded(
 
 
 def encode_padded_plain(
-    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0, stitch: str = "auto"
+    ints: torch.Tensor, n_valid_chunks: int, chunk_base: int = 0, stitch: str = "v3"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """encode_padded through the plain versions, on any device (both
     stitches have the one plain version)."""

@@ -2,12 +2,13 @@
 
 Replaces no TPU kernel: wah_tpu validates and counts a stream on the host
 (api.checked_stream and stream_chunks), one thread over the whole stream
-before the stream is sent. WahCodec.decompress here sends the stream as it
-is and runs this pass over the copy: one read of the words in device memory
-gives the first word that breaks the format and the chunk count that sizes
-the decode. The kernel (wah_tpu_torch/csrc/stream_check.cu) is bound by
-memory, 4 bytes read a word; its header says how it keeps the loads in
-flight. `check_stream` runs it for a CUDA tensor and its plain twin
+before the stream is sent. Every decompress here (WahCodec.decompress,
+WahCodec.decompress_batch a column at a time, ShardedCodec.decompress on
+every rank) sends the stream as it is and runs this pass over the copy:
+one read of the words in device memory gives the first word that breaks
+the format and the chunk count that sizes the decode. The kernel
+(wah_tpu_torch/csrc/stream_check.cu) is bound by memory, 4 bytes read a
+word; its header says how it keeps the loads in flight. `check_stream` runs it for a CUDA tensor and its plain twin
 `check_stream_plain` for a CPU tensor.
 """
 from __future__ import annotations

@@ -6,9 +6,10 @@ As in wah_tpu, a binary op decodes both operands into bitmaps, applies
 the op elementwise and re-encodes, all on one device; a k-way fold
 decodes its k columns in one batched decode, reduces them by a tree of
 halves and encodes once. On a CUDA device the decodes and encodes run
-kernels K1-K4 and K6 (ops/cuda); on the CPU their plain versions. Each
-function takes `plain=True` to run the same pipeline through the plain
-versions on any device (the reference the kernels are held to).
+kernels K1-K4 (ops/cuda), every encode stitched by K2; on the CPU their
+plain versions. Each function takes `plain=True` to run the same
+pipeline through the plain versions on any device (the reference the
+kernels are held to).
 
 NOT is complement: every literal flips, zero-fills and one-fills swap —
 a rewrite of the compressed words with no decode (elementwise torch, as
@@ -17,11 +18,10 @@ ints so that padding bits stay zero.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..constants import BIT30, BIT31, BIT3130, BLOCK_CHUNKS, BLOCK_INTS, ONES31
-from ..convert import words_to_tensor
+from ..convert import to_i32
 from ..golden import chunk_count
 from .cuda import decode_kernel as dk
 from .cuda import encode_kernel as ek
@@ -56,8 +56,8 @@ def logical_op(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Streams A = words_a[:m_a], B = words_b[:m_b] (int32, one device,
     both of logical length n_ints > 0) -> compressed A op B as (words,
-    total), the contract of encode_padded with its default "auto" stitch:
-    a sparse result goes through K6, a dense one through K2."""
+    total), the contract of encode_padded, stitched by K2 ("v3", as the
+    folds): words past total are unspecified."""
     fn = OPS[op]
     decode, _, encode = _pipeline(plain)
     nv = chunk_count(n_ints)
@@ -66,22 +66,22 @@ def logical_op(
     b, _ = decode(words_b, m_b, cap)
     combined = fn(a, b)
     combined[n_ints:] = 0  # ANDNOT could set padding bits; they encode as zero fills
-    return encode(combined, nv, stitch="auto")
+    return encode(combined, nv, stitch="v3")
 
 
 def _identity_words(op: str, nv: int, M: int, device) -> tuple[torch.Tensor, int]:
     """(M,) identity stream that pads a k-way fold to a power-of-two fan-in:
     the all-ones bitmap for AND, all-zeros for OR/XOR, as proper fill
     streams (one fill word per 1024-chunk block) so that the padding
-    columns expand like the others. Returns (words, word count)."""
+    columns expand like the others. Returns (words, word count). Built on
+    `device`: nothing crosses from the host."""
     nb = -(-nv // BLOCK_CHUNKS)
     if M < nb:
         raise ValueError(f"{M} words cannot hold the {nb}-word identity stream")
-    lens = np.full(nb, BLOCK_CHUNKS, np.uint32)
-    lens[-1] = nv - (nb - 1) * BLOCK_CHUNKS
-    out = np.zeros(M, np.uint32)
-    out[:nb] = np.uint32(BIT3130 if op == "and" else BIT31) | lens
-    return words_to_tensor(out, device), nb
+    lens = (nv - BLOCK_CHUNKS * torch.arange(nb, device=device)).clamp(max=BLOCK_CHUNKS)
+    out = torch.zeros(M, dtype=torch.int32, device=device)
+    out[:nb] = to_i32(lens | (BIT3130 if op == "and" else BIT31))
+    return out, nb
 
 
 def logical_reduce(

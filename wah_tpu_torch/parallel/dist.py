@@ -37,11 +37,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..api import _check_size, checked_stream, resolve_device, stream_chunks
+from ..api import _check_size, _violation, checked_stream, resolve_device
 from ..constants import BLOCK_CHUNKS, BLOCK_INTS
-from ..convert import tensor_to_words
+from ..convert import tensor_to_words, words_to_tensor
 from ..golden import chunk_count
-from ..ops.cuda import decode_kernel, encode_kernel, stitch2
+from ..ops.cuda import decode_kernel, encode_kernel, stitch2, stream_check
 from ..utils.profiling import span
 from ._comm import all_gather, rank_and_size
 from .multihost import local_device
@@ -241,15 +241,6 @@ def gather_bitmap(ints_l: torch.Tensor, n_ints: int, group=None) -> np.ndarray:
 # host-facing codec
 # --------------------------------------------------------------------------
 
-def _to_device(host: np.ndarray, length: int, device) -> torch.Tensor:
-    """uint32 host words -> (length,) int32 on `device`, zero past them,
-    copied straight into the device buffer (no padded host copy)."""
-    out = torch.zeros(length, dtype=_I32, device=device)
-    host = np.require(host, dtype=np.uint32, requirements=["C", "W"])
-    out[: host.shape[0]] = torch.from_numpy(host.view(np.int32))
-    return out
-
-
 class ShardedCodec:
     """The host API over the sharded codec (wah_tpu's ShardedCodec, one
     rank a device): every rank passes the whole numpy input and gets the
@@ -278,25 +269,30 @@ class ShardedCodec:
         nb = -(-nv // BLOCK_CHUNKS)
         nb_l = -(-nb // D)
         lo = rank * nb_l * BLOCK_INTS
-        ints_l = _to_device(data[lo : lo + nb_l * BLOCK_INTS], nb_l * BLOCK_INTS, self.device)
+        ints_l = words_to_tensor(data[lo : lo + nb_l * BLOCK_INTS], self.device,
+                                 size=nb_l * BLOCK_INTS)
         words_l, totals = encode_sharded(ints_l, nv, self.group)
         del ints_l
         return gather_stream(words_l, totals, self.group)
 
     def decompress(self, words: np.ndarray, out_ints: int | None = None) -> np.ndarray:
         """WAH stream -> bitmap of ceil(31 n_chunks / 32) ints, or out_ints.
-        Every rank validates the stream before any collective, so a
-        corrupt stream raises on all of them and hangs none. The chunk
+        Every rank copies the stream to its device and checks and counts it
+        there with V1 before any collective, so a corrupt stream raises
+        checked_stream's message on all of them and hangs none. The chunk
         capacity is a whole number of blocks a rank, so every rank's span
         runs K3 + K4."""
-        words = checked_stream(words)
+        words = np.ascontiguousarray(words, dtype=np.uint32)
         m = words.shape[0]
         if m == 0:
             return np.zeros(0, dtype=np.uint32)
-        n_chunks = stream_chunks(words)
+        dev_words = words_to_tensor(words, self.device, size=-(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS)
+        first_bad, n_chunks = stream_check.check_stream(dev_words, m).tolist()
+        if first_bad < m:  # the host check raises its message
+            checked_stream(words)
+            raise ValueError(_violation(int(words[first_bad])))
         _, D = rank_and_size(self.group)
         nb = -(-max(1, -(-n_chunks // BLOCK_CHUNKS)) // D) * D
-        dev_words = _to_device(words, -(-m // BLOCK_CHUNKS) * BLOCK_CHUNKS, self.device)
         ints_l, _ = decode_sharded(dev_words, m, nb * BLOCK_CHUNKS, self.group)
         del dev_words
         out = gather_bitmap(ints_l, n_chunks - n_chunks // 32, self.group)

@@ -22,7 +22,6 @@ costs one check. The names the port records:
 
   wah.compress, wah.decompress            a whole WahCodec call (the top
                                           level: one call id each)
-  wah.compress.pad                        the copy to whole blocks (bytes)
   wah.decompress.validate                 V1's check and count of the stream
                                           on the device, and the host's read
                                           of its result (bytes of the stream)
